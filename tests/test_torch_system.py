@@ -1,0 +1,101 @@
+"""The port's System tracks a synthetic stereo sequence on the CPU.
+
+Held to the bar of tests/test_slam_e2e.py: every frame tracked, ATE RMSE
+under 1 cm.  A subprocess run shows that the port never imports JAX (this
+process cannot: tests/conftest.py imports it)."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+from orbslam3_tpu.slam.tracking import TrackingState
+from orbslam3_tpu_torch import Pinhole, PyramidParams, ate_rmse, stereo_sequence
+from orbslam3_tpu_torch.slam.system import System
+
+FX = 350.0
+H, W = 384, 512
+BASELINE = 0.12
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    camera = Pinhole([FX, FX, W / 2, H / 2])
+    frames = stereo_sequence(10, camera, BASELINE, H, W, seed=1)
+    sysm = System(
+        camera, FX * BASELINE, PyramidParams(n_features=900), sequential=True,
+        max_frames=8, device="cpu",
+    )
+    est, gt, states = [], [], []
+    for k, (img_l, img_r, tcw_gt) in enumerate(frames):
+        pose = sysm.track_stereo(img_l, img_r, timestamp=k / 20.0)
+        states.append(sysm.get_tracking_state())
+        if pose is not None:
+            est.append(pose)
+            gt.append(tcw_gt)
+    path = tmp_path_factory.mktemp("traj") / "traj.txt"
+    sysm.save_trajectory_tum(str(path))
+    sysm.shutdown()
+    return est, gt, states, path
+
+
+def test_tracks_every_frame(run):
+    est, _, states, _ = run
+    assert len(est) == 10
+    assert all(s == TrackingState.OK for s in states)
+
+
+def test_ate_sub_centimeter(run):
+    est, gt, _, _ = run
+    assert ate_rmse(est, gt) < 0.01
+
+
+def test_trajectory_saved(run):
+    *_, path = run
+    assert len(path.read_text().strip().splitlines()) == 10
+
+
+def test_device_is_explicit():
+    import torch
+
+    camera = Pinhole([FX, FX, W / 2, H / 2])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            System(camera, FX * BASELINE)
+    sysm = System(camera, FX * BASELINE, device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        sysm.track_monocular(np.zeros((H, W), np.uint8), 0.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sysm.prefetch_stereo_batch([])
+
+
+def test_port_never_imports_jax():
+    script = textwrap.dedent(
+        """
+        import sys
+        from orbslam3_tpu_torch import Pinhole, PyramidParams, stereo_sequence
+        from orbslam3_tpu_torch.slam.system import System
+
+        cam = Pinhole([350.0, 350.0, 160.0, 120.0])
+        sysm = System(cam, 42.0, PyramidParams(n_features=500), device="cpu")
+        frames = stereo_sequence(2, cam, 0.12, 240, 320, seed=1)
+        for k, (l, r, _) in enumerate(frames):
+            sysm.track_stereo(l, r, timestamp=k / 20.0)
+        handle = sysm.prefetch_stereo(frames[0][0], frames[0][1])
+        sysm.track_stereo_prefetched(handle, timestamp=0.1)
+        sysm.shutdown()
+        assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        print("NO_JAX_OK")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True, env=env,
+        cwd=REPO, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK" in proc.stdout
