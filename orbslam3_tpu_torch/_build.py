@@ -1,11 +1,13 @@
 """Lazy build of the hand-written CUDA kernels under ``csrc/``.
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``.  Nothing is built when a
-module is imported: the first kernel launch calls `kernels()`, which builds
-into ``_build/`` (keyed by a hash of the sources and flags, so an edited
-kernel rebuilds) and loads the library once per process.  A failed build
-raises; no caller falls back to a plain version.
+Each ``.cu`` source compiles with ``nvcc`` for ``sm_90a`` into an object
+file, all of them at once in parallel processes, and the objects link into
+one shared library with a plain C interface, loaded with ``ctypes``.
+Nothing is built when a module is imported: the first kernel launch calls
+`kernels()`, which builds into ``_build/`` (keyed by a hash of the sources,
+headers and flags, so an edited kernel rebuilds) and loads the library once
+per process.  A failed build raises; no caller falls back to a plain
+version.
 """
 
 from __future__ import annotations
@@ -23,10 +25,11 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+NVCC_TIMEOUT_S = 600
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -41,6 +44,12 @@ _SIGNATURES = {
     "fast_score": [_P, _P, _P, _I, _I, _P],
     # gather_windows(img, h, w, row0, col0, k, nr, nc, out, stream)
     "gather_windows": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P],
+    # detect_fused(img, mask, sel_scratch, out, h, w, ini_th, min_th, stream)
+    "detect_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # window_moments(img, h, w, row0, col0, k, nr, nc, weights, out, stream)
+    "window_moments": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
+    # sample_windows(img, h, w, row0, col0, ridx, cidx, k, s, nr, nc, out, stream)
+    "sample_windows": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -60,33 +69,59 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Run the commands as parallel processes; wait for (or kill) all."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cmds
+    ]
+    done = []
+    try:
+        for cmd, p in zip(cmds, procs):
+            out, err = p.communicate(timeout=NVCC_TIMEOUT_S)
+            done.append(subprocess.CompletedProcess(cmd, p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return done
+
+
+def _check(procs: list[subprocess.CompletedProcess]) -> None:
+    failed = [p for p in procs if p.returncode != 0]
+    if failed:
+        raise RuntimeError(
+            "nvcc failed:\n" + "\n".join(
+                f"$ {' '.join(p.args)}\n{p.stdout}\n{p.stderr}" for p in failed
+            )
+        )
+
+
 def _build(so: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
+    nvcc = _nvcc()
+    cu = [s for s in _sources() if s.suffix == ".cu"]
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True, timeout=600,
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{s.stem}.o") for s in cu]
+        compiled = _run_all(
+            [[nvcc, *COMPILE_FLAGS, "-c", "-o", o, str(s)] for s, o in zip(cu, objs)]
         )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    build_info.update(seconds=time.perf_counter() - t0, log=proc.stderr)
+        _check(compiled)
+        lib = str(Path(tmp) / so.name)
+        _check(_run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]]))
+        os.replace(lib, so)  # atomic: a concurrent process never loads half a file
+    build_info.update(
+        seconds=time.perf_counter() - t0, log="".join(p.stderr for p in compiled)
+    )
 
 
 def kernels() -> ctypes.CDLL:

@@ -1,12 +1,10 @@
 // B1: threshold-free FAST-9/16 corner score over one u8 image.
 //
-// Replaces orbslam3_tpu/ops/fast.py::_raw_score_pallas.  For every pixel:
-// the 16 Bresenham-ring differences d[k] = ring[k] - centre (int32), then
-// score = max(max_o min(d[o..o+8]), max_o min(-d[o..o+8])) - 1 over the 16
-// circular 9-arcs.  The score is stored where the pixel is inside the 3-px
-// frame (no mask) or where the u8 mask plane is 1 (mask multiplied in at the
-// store); every other pixel stores 0.  Min/max are exact in any order, so
-// the result is bit-identical to the plain PyTorch twin.
+// Replaces orbslam3_tpu/ops/fast.py::_raw_score_pallas.  For every pixel the
+// score of fast_score.cuh (max over the 16 circular 9-arcs of the min ring
+// difference, dark polarity folded in, minus 1).  The score is stored where
+// the pixel is inside the 3-px frame (no mask) or where the u8 mask plane is
+// 1 (mask multiplied in at the store); every other pixel stores 0.
 //
 // Bound on the H100: per output pixel the kernel reads 1 B of image (plus
 // 1 B of mask) and writes 4 B, ~6 B/px — about 4 us of HBM time for the
@@ -20,15 +18,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fast_score.cuh"
+
 namespace {
 
 constexpr int TX = 32;
 constexpr int TY = 8;
-constexpr int R = 3;
-
-// FAST_RING of orbslam3_tpu/oracle/orb_cpu.py: (dx, dy), 12 o'clock, clockwise
-__constant__ int kRingDx[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
-__constant__ int kRingDy[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
+constexpr int R = kRingR;
 
 __global__ void fast_score_kernel(const uint8_t* __restrict__ img,
                                   const uint8_t* __restrict__ mask,
@@ -50,28 +46,7 @@ __global__ void fast_score_kernel(const uint8_t* __restrict__ img,
   const int y = y0 + threadIdx.y;
   if (x >= w || y >= h) return;
 
-  const int cy = threadIdx.y + R;
-  const int cx = threadIdx.x + R;
-  const int c = tile[cy][cx];
-  int d[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) d[k] = int(tile[cy + kRingDy[k]][cx + kRingDx[k]]) - c;
-
-  int bright = -256;  // max over arcs of the arc minimum
-  int ndark = 256;    // min over arcs of the arc maximum (dark = -ndark)
-#pragma unroll
-  for (int o = 0; o < 16; ++o) {
-    int mn = d[o];
-    int mx = d[o];
-#pragma unroll
-    for (int j = 1; j < 9; ++j) {
-      mn = min(mn, d[(o + j) & 15]);
-      mx = max(mx, d[(o + j) & 15]);
-    }
-    bright = max(bright, mn);
-    ndark = min(ndark, mx);
-  }
-  const int score = max(bright, -ndark) - 1;
+  const int score = fast_score_at(&tile[0][0], TX + 2 * R, threadIdx.y + R, threadIdx.x + R);
 
   int keep;
   if (mask != nullptr) {

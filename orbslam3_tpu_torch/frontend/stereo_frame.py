@@ -7,6 +7,10 @@ batched selection, orientation and rBRIEF over the camera-merged composite
 (two B2 launches), then the masked Hamming match with the 11-slide SAD
 subpixel refinement (two B2 launches) and the median-SAD filter.
 
+Under `FusedKernels` detection runs B3 instead of B1 and orientation and
+rBRIEF run B4 and B5 instead of their two B2 gathers; the SAD refinement
+keeps its two B2 launches.
+
 `StereoFrontEnd` holds the constant tables of one image geometry as module
 buffers; `StereoFrontEnd.from_reference` builds them from the JAX
 package's own numpy tables, so both packages compute from identical
@@ -22,27 +26,23 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from orbslam3_tpu.oracle.orb_cpu import (
-    FAST_BORDER,
-    PyramidParams,
-    gaussian_kernel7_fixed,
-    ic_moment_weights,
-)
-from orbslam3_tpu_torch.ops.brief import brief_pattern_np
+from orbslam3_tpu.oracle.orb_cpu import PyramidParams
 from orbslam3_tpu_torch.ops.extractor import (
-    COMPOSITE_BAND,
+    PACK_COLS,
     FrameFeatures,
+    FusedKernels,
+    TableModule,
     active_levels,
     build_merged_composites,
     detection_crops,
     extract_from_pyramids,
+    extraction_tables_np,
     is_flat,
-    merged_layout,
-    slot_tables_np,
+    pack_features,
 )
-from orbslam3_tpu_torch.ops.fast import detect_two_threshold_multi, detection_layout
+from orbslam3_tpu_torch.ops.fast import detect_two_threshold_multi
 from orbslam3_tpu_torch.ops.matching import BIG, TH_HIGH, TH_LOW, hamming_matrix
-from orbslam3_tpu_torch.ops.pyramid import build_pyramid, resize_taps_np, ResizeTaps
+from orbslam3_tpu_torch.ops.pyramid import build_pyramid
 from orbslam3_tpu_torch.ops.window_gather import gather_windows
 
 SAD_W = 5
@@ -51,9 +51,6 @@ SAD_L = 5
 # EuRoC-like defaults (cam0 pinhole, ~0.11 m baseline)
 DEFAULT_FX = 435.2046959714599
 DEFAULT_MBF = 47.90639384423901
-
-# columns of the packed host-transfer layout
-PACK_COLS = 40  # x, y, response, angle, octave, valid, u_right, depth, desc[32]
 
 
 class StereoFrameFeatures(NamedTuple):
@@ -166,76 +163,48 @@ def stereo_match(
 
 
 def _pack_features(out: StereoFrameFeatures) -> torch.Tensor:
-    l = out.left
-    cols = [
-        l.xy[:, 0], l.xy[:, 1],
-        l.response, l.angle,
-        l.octave.to(torch.float32), l.valid.to(torch.float32),
-        out.u_right, out.depth,
-    ]
-    return torch.cat([torch.stack(cols, dim=1), l.desc.to(torch.float32)], dim=1)
+    return pack_features(out.left, out.u_right, out.depth)
 
 
-class StereoFrontEnd(torch.nn.Module):
+class StereoFrontEnd(TableModule):
     """The stereo front-end of one image geometry, its constant tables held
     as buffers on the module's device.  `forward(pair)` takes a (2, H, W)
     uint8 tensor and returns the (K, 40) f32 packed block."""
 
     def __init__(
         self, params: PyramidParams, image_hw: tuple, mbf: float, fx: float,
-        tables: dict[str, np.ndarray],
+        tables: dict[str, np.ndarray], fused: FusedKernels = FusedKernels(),
     ):
-        super().__init__()
+        super().__init__(tables)
         self.params = params
         self.image_hw = tuple(image_hw)
         self.mbf = float(mbf)
         self.fx = float(fx)
-        for name, arr in tables.items():
-            self.register_buffer(name, torch.from_numpy(np.ascontiguousarray(arr)))
+        self.fused = FusedKernels(*fused)
 
     @classmethod
     def from_reference(
         cls, params: PyramidParams, image_hw: tuple, mbf: float = DEFAULT_MBF,
-        fx: float = DEFAULT_FX,
+        fx: float = DEFAULT_FX, fused: FusedKernels = FusedKernels(),
     ) -> "StereoFrontEnd":
-        """Constant tables from the JAX package's numpy sources: the resize
-        taps (`_linear_coeffs`), blur taps (`gaussian_kernel7_fixed`), IC
-        moment weights (`ic_moment_weights`), BRIEF pattern
-        (`BIT_PATTERN_31`) and the quotas / level sizes of `PyramidParams`,
-        plus the composite layouts they imply."""
+        """Constant tables from the JAX package's numpy sources: the
+        extractor's tables of both cameras (`extraction_tables_np`) plus the
+        level sizes and scale factors of `PyramidParams` for the matcher."""
         h, w = image_hw
         sizes = params.level_sizes(h, w)
         if not is_flat(sizes, params, active_levels(sizes, params)):
             raise NotImplementedError(
-                f"{h}x{w} with {params} is not the flat geometry; the per-level "
-                "extractor is not ported yet: ROADMAP A10"
+                f"{h}x{w} with {params} is not the flat geometry; the stereo "
+                "front-end for other geometries is not ported yet: ROADMAP A10"
             )
-        b = FAST_BORDER
-        crop_shapes = [(lh - 2 * b, lw - 2 * b) for lh, lw in sizes] * 2
-        _, _, det_mask = detection_layout(crop_shapes)
-        _, place, merged_mask = merged_layout(sizes * 2)
-        n = len(sizes)
-        y0 = (tuple(p[0] for p in place[:n]), tuple(p[0] for p in place[n:]))
-        x0 = (tuple(p[1] for p in place[:n]), tuple(p[1] for p in place[n:]))
         scales = params.scale_factors.astype(np.float32)
         tables = dict(
-            {f"resize_{k}": v for k, v in resize_taps_np(h, w, sizes[1:]).items()},
-            blur_taps=gaussian_kernel7_fixed().astype(np.int32),
-            ic_weights=np.stack(ic_moment_weights()).astype(np.int32),
-            brief_pattern=brief_pattern_np(),
-            det_mask=det_mask,
-            merged_mask=merged_mask,
+            extraction_tables_np(params, (h, w), 2),
             level_hw=np.asarray(sizes, np.int32),
             scale_factors=scales,
             inv_scale_factors=(np.float32(1.0) / scales).astype(np.float32),
-            row_off=np.asarray(y0, np.int32) + COMPOSITE_BAND,
-            col_off=np.asarray(x0, np.int32) + COMPOSITE_BAND,
-            **slot_tables_np(params, y0, x0, COMPOSITE_BAND),
         )
-        return cls(params, image_hw, mbf, fx, tables)
-
-    def resize_taps(self) -> ResizeTaps:
-        return ResizeTaps(*(getattr(self, f"resize_{f}") for f in ResizeTaps._fields))
+        return cls(params, image_hw, mbf, fx, tables, fused)
 
     def forward(self, pair: torch.Tensor) -> torch.Tensor:
         if tuple(pair.shape) != (2, *self.image_hw) or pair.dtype != torch.uint8:
@@ -246,7 +215,9 @@ class StereoFrontEnd(torch.nn.Module):
         if pair.device != self.blur_taps.device:
             raise ValueError(f"pair on {pair.device}, front-end on {self.blur_taps.device}")
         return _pack_features(
-            _extract_and_match_stereo_impl(pair, self.params, self.mbf, self.fx, tables=self)
+            _extract_and_match_stereo_impl(
+                pair, self.params, self.mbf, self.fx, tables=self, fused=self.fused
+            )
         )
 
 
@@ -256,17 +227,21 @@ def _extract_and_match_stereo_impl(
     mbf: float = DEFAULT_MBF,
     fx: float = DEFAULT_FX,
     tables: StereoFrontEnd | None = None,
+    fused: FusedKernels = FusedKernels(),
 ) -> StereoFrameFeatures:
     """pair: (2, H, W) uint8 — the full stereo perception front-end;
     `tables` defaults to the cached front-end of this geometry."""
     if tables is None:
-        tables = front_end(params, tuple(pair.shape[1:]), float(mbf), float(fx), str(pair.device))
+        tables = front_end(
+            params, tuple(pair.shape[1:]), float(mbf), float(fx), str(pair.device), fused
+        )
     pyr_l = build_pyramid(pair[0], params, tables.resize_taps())
     pyr_r = build_pyramid(pair[1], params, tables.resize_taps())
     act_l, crops_l = detection_crops(pyr_l, params)
     act_r, crops_r = detection_crops(pyr_r, params)
     score_list = detect_two_threshold_multi(
-        crops_l + crops_r, params.ini_th_fast, params.min_th_fast, mask=tables.det_mask
+        crops_l + crops_r, params.ini_th_fast, params.min_th_fast, mask=tables.det_mask,
+        fused=fused.detect,
     )
     comps = build_merged_composites([pyr_l, pyr_r], tables)
     feat_l, feat_r = extract_from_pyramids(
@@ -278,6 +253,7 @@ def _extract_and_match_stereo_impl(
         ],
         tables,
         comps=comps,
+        fused=fused,
     )
     # the SAD refinement reads the bordered raw composite; the interior
     # offset +pad is folded into the per-level origins
@@ -297,10 +273,12 @@ def _extract_and_match_stereo_impl(
 
 @functools.lru_cache(maxsize=8)
 def front_end(
-    params: PyramidParams, image_hw: tuple, mbf: float, fx: float, device: str
+    params: PyramidParams, image_hw: tuple, mbf: float, fx: float, device: str,
+    fused: FusedKernels = FusedKernels(),
 ) -> StereoFrontEnd:
-    """The front-end of one geometry on one device, built once per process."""
-    return StereoFrontEnd.from_reference(params, image_hw, mbf, fx).to(device)
+    """The front-end of one geometry and configuration on one device, built
+    once per process."""
+    return StereoFrontEnd.from_reference(params, image_hw, mbf, fx, fused).to(device)
 
 
 def extract_and_match_stereo_packed(
@@ -308,13 +286,14 @@ def extract_and_match_stereo_packed(
     params: PyramidParams,
     mbf: float = DEFAULT_MBF,
     fx: float = DEFAULT_FX,
+    fused: FusedKernels = FusedKernels(),
 ) -> torch.Tensor:
     """(2, H, W) uint8 pair -> ONE (K, 40) f32 block on the pair's device:
     the left camera block + u_right/depth (unpack with
     `unpack_host_features`)."""
     if not isinstance(pair, torch.Tensor):
         raise TypeError("pair must be a torch.Tensor on the device to run on")
-    return _pack_features(_extract_and_match_stereo_impl(pair, params, mbf, fx))
+    return _pack_features(_extract_and_match_stereo_impl(pair, params, mbf, fx, fused=fused))
 
 
 def unpack_host_features(arr: np.ndarray) -> dict:

@@ -3,8 +3,9 @@
 Counterpart of ``orbslam3_tpu/ops/brief.py``: rotate the 512 pattern points
 in f32 with the reference's expression order, round half to even
 (`torch.round`, as `jnp.rint`, C-h4), sample the 37x37 window around each
-keypoint (B2 gather + indexing), compare the 256 pairs and pack bits
-LSB-first per byte (even samples < odd samples).  Bit-exact given the same
+keypoint (B2 gather + indexing, or the fused B5 kernel with `fused`),
+compare the 256 pairs and pack bits LSB-first per byte (even samples <
+odd samples).  Bit-exact given the same
 (cos, sin); pass `trig` to pin them, since platform trig may differ by ulps
 (C-h2).
 """
@@ -50,6 +51,7 @@ def brief_descriptors(
     angles_deg: torch.Tensor,
     trig: tuple[torch.Tensor, torch.Tensor] | None = None,
     pattern: torch.Tensor | None = None,
+    fused: bool = False,
 ) -> torch.Tensor:
     """(N, 32) uint8 descriptors.
 
@@ -73,7 +75,7 @@ def brief_descriptors(
     samples = sample_windows(
         sampling_img, cy - PATCH_HALF, cx - PATCH_HALF,
         r_off + PATCH_HALF, c_off + PATCH_HALF,
-        2 * PATCH_HALF + 1, 2 * PATCH_HALF + 1,
+        2 * PATCH_HALF + 1, 2 * PATCH_HALF + 1, fused=fused,
     )
     bits = (samples[:, 0::2] < samples[:, 1::2]).to(torch.int32).reshape(-1, 32, 8)
     shifts = torch.arange(8, dtype=torch.int32, device=bits.device)

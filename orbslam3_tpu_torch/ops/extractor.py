@@ -1,30 +1,64 @@
-"""ORB extraction over prebuilt pyramids: selection, orientation, rBRIEF.
+"""ORB extraction: detection, selection, orientation, rBRIEF.
 
-Counterpart of ``orbslam3_tpu/ops/extractor.py`` for its flat path (every
-level active at its full quota — the standard geometry).  The cameras share
-one batched selection, one orientation gather and one descriptor gather
-over the camera-merged bordered composite, laid out exactly as the
+Counterpart of ``orbslam3_tpu/ops/extractor.py``.  On the flat geometry
+(every level active at its full quota — the standard one) the cameras
+share one batched selection, one orientation gather and one descriptor
+gather over the camera-merged bordered composite, laid out exactly as the
 reference lays it out.  Other geometries take the reference's per-level
-`_extract_single`, which is not ported yet (ROADMAP A10).
+`_extract_single`.
 
-Constant tables (moment weights, BRIEF pattern, blur taps, composite masks,
-per-slot metadata) come from a `tables` object holding them on the device
-(`frontend.stereo_frame.StereoFrontEnd`).
+Constant tables (resize and blur taps, moment weights, BRIEF pattern,
+composite masks, per-slot metadata) come from a `tables` module holding
+them on the device: `FeatureExtractor` for one camera,
+`frontend.stereo_frame.StereoFrontEnd` for the stereo pair.
+`FusedKernels` picks the front-end's kernels, as the reference's three
+environment switches do.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from orbslam3_tpu.oracle.orb_cpu import FAST_BORDER, PATCH_SIZE, PyramidParams
-from orbslam3_tpu_torch.ops.brief import BRIEF_PAD, brief_descriptors
-from orbslam3_tpu_torch.ops.fast import shelf_pack
+from orbslam3_tpu.oracle.orb_cpu import (
+    FAST_BORDER,
+    PATCH_SIZE,
+    PyramidParams,
+    gaussian_kernel7_fixed,
+    ic_moment_weights,
+)
+from orbslam3_tpu_torch.ops.brief import (
+    BRIEF_PAD,
+    brief_descriptors,
+    brief_pattern_np,
+    brief_sampling_image,
+)
+from orbslam3_tpu_torch.ops.fast import detect_two_threshold_multi, detection_layout, shelf_pack
 from orbslam3_tpu_torch.ops.orientation import ic_angles
-from orbslam3_tpu_torch.ops.pyramid import gaussian_blur7_u8, reflect101_pad
+from orbslam3_tpu_torch.ops.pyramid import (
+    ResizeTaps,
+    build_pyramid,
+    gaussian_blur7_u8,
+    reflect101_pad,
+    resize_taps_np,
+)
 from orbslam3_tpu_torch.ops.select import select_topk_grid_multi
+
+
+class FusedKernels(NamedTuple):
+    """The front-end's fused-kernel configuration: the port's explicit
+    counterpart of the reference's ORBSLAM3_TPU_PALLAS_DETECT / _MOMENTS /
+    _SAMPLE switches, off by default as there.  Off, detection runs B1 plus
+    tensor code and orientation / rBRIEF run over B2 windows; on, each runs
+    its fused kernel instead."""
+
+    detect: bool = False   # B3: score, per-tile retry and NMS in one call
+    moments: bool = False  # B4: the IC moments without a (K, 31, 31) window block
+    sample: bool = False   # B5: the rBRIEF samples without a (K, 37, 37) window block
+
 
 COMPOSITE_BAND = 4
 
@@ -153,17 +187,22 @@ def extract_from_pyramids(
     scores_list: list,
     tables,
     comps: MergedComposites | None = None,
+    fused: FusedKernels = FusedKernels(),
 ) -> list[FrameFeatures]:
-    """Extraction for SEVERAL cameras' pyramids with shared device work
-    (flat geometry only).  scores_list[c] maps level -> NMS'd score crop."""
+    """Extraction for SEVERAL cameras' pyramids with shared device work on
+    the flat geometry; any other geometry takes `_extract_single` per
+    camera, as in the reference.  scores_list[c] maps level -> NMS'd score
+    crop."""
     b = FAST_BORDER
     quotas = [int(q) for q in params.features_per_level()]
-    for pyr, scores in zip(pyramids, scores_list):
-        if not is_flat([tuple(i.shape) for i in pyr], params, sorted(scores)):
-            raise NotImplementedError(
-                "geometry with inactive or short levels needs the per-level "
-                "extractor (_extract_single), not ported yet: ROADMAP A10"
-            )
+    if not all(
+        is_flat([tuple(i.shape) for i in pyr], params, sorted(scores))
+        for pyr, scores in zip(pyramids, scores_list)
+    ):
+        return [
+            _extract_single(pyr, params, scores, tables, fused)
+            for pyr, scores in zip(pyramids, scores_list)
+        ]
     n_cams = len(pyramids)
     n_lvl = len(pyramids[0])
     selections = select_topk_grid_multi(
@@ -188,7 +227,8 @@ def extract_from_pyramids(
     xy_all = torch.cat(safe_cats)
     # orientation reads RAW pixels of the bordered composite
     angles_all = ic_angles(
-        comps.bordered, xy_all + tables.slot_off_orient, weights=tables.ic_weights
+        comps.bordered, xy_all + tables.slot_off_orient, weights=tables.ic_weights,
+        fused=fused.moments,
     )
     # brief_descriptors adds BRIEF_PAD to both coords; the offsets subtract it
     desc_all = brief_descriptors(
@@ -196,6 +236,7 @@ def extract_from_pyramids(
         (xy_all + tables.slot_off_brief).to(torch.float32),
         angles_all,
         pattern=tables.brief_pattern,
+        fused=fused.sample,
     )
 
     scale_vec = tables.slot_scale
@@ -220,3 +261,243 @@ def extract_from_pyramids(
             )
         )
     return out
+
+
+def _empty_level_block(k: int, device) -> FrameFeatures:
+    f32 = dict(dtype=torch.float32, device=device)
+    return FrameFeatures(
+        xy=torch.zeros((k, 2), **f32),
+        response=torch.zeros((k,), **f32),
+        angle=torch.zeros((k,), **f32),
+        octave=torch.zeros((k,), dtype=torch.int32, device=device),
+        size=torch.zeros((k,), **f32),
+        valid=torch.zeros((k,), dtype=torch.bool, device=device),
+        desc=torch.zeros((k, 32), dtype=torch.uint8, device=device),
+    )
+
+
+def _extract_single(
+    pyramid: list, params: PyramidParams, scores: dict, tables,
+    fused: FusedKernels = FusedKernels(),
+) -> FrameFeatures:
+    """The reference's per-level path, for geometries that are not flat
+    (inactive levels, or levels smaller than their quota): one batched
+    selection with per-level quotas min(quota, crop area), then one
+    orientation gather over the vertically stacked raw levels and one
+    descriptor gather over the stacked per-level sampling images (each
+    level blurred on its own with reflect-101, inside a 19-px reflect-101
+    border).  Each level's block is padded to its static quota, invalid
+    slots zeroed."""
+    quotas = [int(q) for q in params.features_per_level()]
+    scales = params.scale_factors
+    b = FAST_BORDER
+    dev = pyramid[0].device
+    sel_levels = [l for l in range(len(pyramid)) if l in scores]
+    k_effs = [
+        min(quotas[l], (pyramid[l].shape[0] - 2 * b) * (pyramid[l].shape[1] - 2 * b))
+        for l in sel_levels
+    ]
+    selections = select_topk_grid_multi([scores[l] for l in sel_levels], k_effs)
+    per_level = {}
+    if sel_levels:
+        safe_xys, raw_rows, samp_rows, y0_raw, y0_samp = [], [], [], [], []
+        raw_wmax = max(pyramid[l].shape[1] for l in sel_levels)
+        samp_wmax = raw_wmax + 2 * BRIEF_PAD
+        for level, (xy_c, _, valid) in zip(sel_levels, selections):
+            # detection border back; invalid slots read at a safe in-bounds xy
+            safe_xys.append(torch.where(valid[:, None], xy_c + b, b + 3))
+            img = pyramid[level]
+            samp = brief_sampling_image(img, gaussian_blur7_u8(img, taps=tables.blur_taps))
+            y0_raw.append(sum(r.shape[0] for r in raw_rows))
+            y0_samp.append(sum(r.shape[0] for r in samp_rows))
+            raw_rows.append(torch.nn.functional.pad(img, (0, raw_wmax - img.shape[1])))
+            samp_rows.append(torch.nn.functional.pad(samp, (0, samp_wmax - samp.shape[1])))
+
+        def offsets(y0s):  # per-slot (0, row) origins of each level's block
+            row = np.repeat(np.asarray(y0s, np.int32), k_effs)
+            return torch.from_numpy(np.stack([np.zeros_like(row), row], axis=1)).to(dev)
+
+        xy_all = torch.cat(safe_xys)
+        angles_all = ic_angles(
+            torch.cat(raw_rows), xy_all + offsets(y0_raw), weights=tables.ic_weights,
+            fused=fused.moments,
+        )
+        desc_all = brief_descriptors(
+            torch.cat(samp_rows), (xy_all + offsets(y0_samp)).to(torch.float32), angles_all,
+            pattern=tables.brief_pattern, fused=fused.sample,
+        )
+        starts = np.cumsum([0] + k_effs)
+        for i, (level, (xy_c, resp, valid)) in enumerate(zip(sel_levels, selections)):
+            sl = slice(int(starts[i]), int(starts[i + 1]))
+            per_level[level] = (xy_c + b, resp, valid, angles_all[sl], desc_all[sl])
+
+    blocks = []
+    for level in range(len(pyramid)):
+        k = quotas[level]
+        if level not in per_level:
+            blocks.append(_empty_level_block(max(k, 0), dev))
+            continue
+        xy_i, resp, valid, angles, desc = per_level[level]
+        k_eff = valid.shape[0]
+        scale = float(scales[level])
+        # the reference multiplies in f32 by the f32-rounded scale
+        mult = float(np.float32(scale)) if level != 0 else 1.0
+        blk = FrameFeatures(
+            xy=xy_i.to(torch.float32) * mult,
+            response=resp.to(torch.float32),
+            angle=angles,
+            octave=torch.full((k_eff,), level, dtype=torch.int32, device=dev),
+            size=torch.full((k_eff,), PATCH_SIZE * scale, dtype=torch.float32, device=dev),
+            valid=valid,
+            desc=desc,
+        )
+        if k_eff < k:  # pad the block to the static quota
+            pad = _empty_level_block(k - k_eff, dev)
+            blk = FrameFeatures(*(torch.cat([a, p]) for a, p in zip(blk, pad)))
+        v = blk.valid
+        blocks.append(blk._replace(
+            xy=torch.where(v[:, None], blk.xy, 0.0),
+            response=torch.where(v, blk.response, 0.0),
+            angle=torch.where(v, blk.angle, 0.0),
+            desc=torch.where(v[:, None], blk.desc, 0),
+        ))
+    return FrameFeatures(*(torch.cat(parts) for parts in zip(*blocks)))
+
+
+def extract_from_pyramid(
+    pyramid: list, params: PyramidParams, tables, scores: dict | None = None,
+    fused: FusedKernels = FusedKernels(),
+) -> FrameFeatures:
+    """Extraction of one camera's prebuilt pyramid; `scores` (level ->
+    NMS'd score crop) skips detection.  Detection runs one composite pass
+    over every active level (B1, or B3 under `fused.detect`)."""
+    if scores is None:
+        active, crops = detection_crops(pyramid, params)
+        score_list = detect_two_threshold_multi(
+            crops, params.ini_th_fast, params.min_th_fast, mask=tables.det_mask,
+            fused=fused.detect,
+        )
+        scores = dict(zip(active, score_list))
+    return extract_from_pyramids([pyramid], params, [scores], tables, fused=fused)[0]
+
+
+def extract_features(
+    image: torch.Tensor, params: PyramidParams, tables, fused: FusedKernels = FusedKernels()
+) -> FrameFeatures:
+    """Full ORB extraction of one (H, W) uint8 image on its device, with
+    the constant tables of its geometry (`FeatureExtractor`)."""
+    return extract_from_pyramid(
+        build_pyramid(image, params, tables.resize_taps()), params, tables, fused=fused
+    )
+
+
+# columns of the packed host-transfer layout
+PACK_COLS = 40  # x, y, response, angle, octave, valid, u_right, depth, desc[32]
+
+
+def pack_features(
+    f: FrameFeatures, u_right: torch.Tensor | None = None, depth: torch.Tensor | None = None
+) -> torch.Tensor:
+    """(K, 40) f32 host-transfer block: x, y, response, angle, octave,
+    valid, u_right, depth, desc[32]; u_right and depth are -1 when not
+    given (one camera).  One device->host copy carries the whole frame."""
+    if u_right is None:
+        u_right = torch.full_like(f.response, -1.0)
+    if depth is None:
+        depth = torch.full_like(f.response, -1.0)
+    cols = [
+        f.xy[:, 0], f.xy[:, 1], f.response, f.angle,
+        f.octave.to(torch.float32), f.valid.to(torch.float32), u_right, depth,
+    ]
+    return torch.cat([torch.stack(cols, dim=1), f.desc.to(torch.float32)], dim=1)
+
+
+class TableModule(torch.nn.Module):
+    """Constant tables of one image geometry, held as module buffers so
+    `.to(device)` moves them all."""
+
+    def __init__(self, tables: dict[str, np.ndarray]):
+        super().__init__()
+        for name, arr in tables.items():
+            self.register_buffer(name, torch.from_numpy(np.ascontiguousarray(arr)))
+
+    def resize_taps(self) -> ResizeTaps:
+        return ResizeTaps(*(getattr(self, f"resize_{f}") for f in ResizeTaps._fields))
+
+
+def extraction_tables_np(params: PyramidParams, image_hw: tuple, n_cams: int) -> dict:
+    """The extractor's constant tables for `n_cams` cameras of one geometry,
+    from the JAX package's numpy sources: the resize taps
+    (`_linear_coeffs`), blur taps (`gaussian_kernel7_fixed`), IC moment
+    weights (`ic_moment_weights`), BRIEF pattern (`BIT_PATTERN_31`) and the
+    detection mask of every camera's active crops.  The flat geometry adds
+    the merged composite's interior mask, the interior origins of each
+    (camera, level) block (`row_off`, `col_off`) and the per-slot tables."""
+    h, w = image_hw
+    sizes = params.level_sizes(h, w)
+    active = active_levels(sizes, params)
+    b = FAST_BORDER
+    _, _, det_mask = detection_layout(
+        [(sizes[l][0] - 2 * b, sizes[l][1] - 2 * b) for l in active] * n_cams
+    )
+    tables = dict(
+        {f"resize_{k}": v for k, v in resize_taps_np(h, w, sizes[1:]).items()},
+        blur_taps=gaussian_kernel7_fixed().astype(np.int32),
+        ic_weights=np.stack(ic_moment_weights()).astype(np.int32),
+        brief_pattern=brief_pattern_np(),
+        det_mask=det_mask,
+    )
+    if is_flat(sizes, params, active):
+        _, place, merged_mask = merged_layout(sizes * n_cams)
+        n = len(sizes)
+        y0 = tuple(tuple(p[0] for p in place[c * n : (c + 1) * n]) for c in range(n_cams))
+        x0 = tuple(tuple(p[1] for p in place[c * n : (c + 1) * n]) for c in range(n_cams))
+        tables.update(
+            merged_mask=merged_mask,
+            row_off=np.asarray(y0, np.int32) + COMPOSITE_BAND,
+            col_off=np.asarray(x0, np.int32) + COMPOSITE_BAND,
+            **slot_tables_np(params, y0, x0, COMPOSITE_BAND),
+        )
+    return tables
+
+
+class FeatureExtractor(TableModule):
+    """The ORB extractor of one camera geometry (the reference's
+    `extract_features_jit` for one image shape), its constant tables held
+    as buffers on the module's device.  `forward(image)` takes an (H, W)
+    uint8 tensor and returns its `FrameFeatures`."""
+
+    def __init__(
+        self, params: PyramidParams, image_hw: tuple, tables: dict[str, np.ndarray],
+        fused: FusedKernels = FusedKernels(),
+    ):
+        super().__init__(tables)
+        self.params = params
+        self.image_hw = tuple(image_hw)
+        self.fused = FusedKernels(*fused)
+
+    @classmethod
+    def from_reference(
+        cls, params: PyramidParams, image_hw: tuple, fused: FusedKernels = FusedKernels()
+    ) -> "FeatureExtractor":
+        """Tables from the JAX package's numpy sources (`extraction_tables_np`)."""
+        return cls(params, image_hw, extraction_tables_np(params, tuple(image_hw), 1), fused)
+
+    def forward(self, image: torch.Tensor) -> FrameFeatures:
+        if tuple(image.shape) != self.image_hw or image.dtype != torch.uint8:
+            raise ValueError(
+                f"expected a {self.image_hw} uint8 image, got {image.dtype} {tuple(image.shape)}"
+            )
+        if image.device != self.blur_taps.device:
+            raise ValueError(f"image on {image.device}, extractor on {self.blur_taps.device}")
+        return extract_features(image, self.params, self, self.fused)
+
+
+@functools.lru_cache(maxsize=8)
+def feature_extractor(
+    params: PyramidParams, image_hw: tuple, fused: FusedKernels, device: str
+) -> FeatureExtractor:
+    """The extractor of one geometry and configuration on one device, built
+    once per process (mono keeps two: the 5x-feature init extractor and
+    the normal one)."""
+    return FeatureExtractor.from_reference(params, image_hw, fused).to(device)

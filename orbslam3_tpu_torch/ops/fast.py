@@ -3,8 +3,11 @@
 Counterpart of ``orbslam3_tpu/ops/fast.py``.  `raw_score_map` is the
 wrapper of the hand-written CUDA kernel ``csrc/fast_score.cu`` (B1, which
 replaces the TPU kernel ``_raw_score_pallas``); `raw_score_map_plain` is
-its plain PyTorch twin.  The per-32x32-tile retry and the 3x3 NMS run as
-plain tensor code, as in the reference's unfused default path.
+its plain PyTorch twin.  On the default path the per-32x32-tile retry and
+the 3x3 NMS run as plain tensor code, as in the reference's unfused path.
+`detect_fused` is the wrapper of ``csrc/detect_fused.cu`` (B3, which
+replaces ``_detect_fused_pallas``): score, retry and NMS in one call;
+`detect_fused_plain` is its twin.
 """
 
 from __future__ import annotations
@@ -164,27 +167,85 @@ def detection_composite(crops: list) -> tuple[torch.Tensor, list, np.ndarray]:
     return comp, meta, mask_np
 
 
+def retry_nms(raw: torch.Tensor, ini_th: int, min_th: int) -> torch.Tensor:
+    """The per-32x32-tile two-threshold retry (a tile keeps scores >= ini_th
+    if it has any, else scores >= min_th), then strict 3x3 NMS; raw's sides
+    are multiples of TILE."""
+    hi = torch.where(raw >= ini_th, raw, 0)
+    lo = torch.where(raw >= min_th, raw, 0)
+    h, w = raw.shape
+    tile_max = hi.view(h // TILE, TILE, w // TILE, TILE).amax(dim=(1, 3))
+    use_hi = (tile_max > 0).repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
+    return nms3(torch.where(use_hi, hi, lo))
+
+
+def detect_fused_plain(
+    comp: torch.Tensor, mask: torch.Tensor, ini_th: int, min_th: int
+) -> torch.Tensor:
+    """Plain PyTorch twin of B3: the masked score, retry and NMS."""
+    return retry_nms(raw_score_map_plain(comp, mask), ini_th, min_th)
+
+
+def detect_fused(
+    comp: torch.Tensor, mask: torch.Tensor, ini_th: int, min_th: int
+) -> torch.Tensor:
+    """(h, w) int32 NMS'd score map of a detection composite whose sides are
+    multiples of TILE: masked FAST score, per-tile retry and strict 3x3 NMS
+    in one call.
+
+    CUDA tensor: launches the B3 kernel (two launches on the stream, one
+    count).  CPU tensor: the plain twin.  The mask contract is that of
+    `raw_score_map`."""
+    if comp.dim() != 2 or comp.dtype != torch.uint8:
+        raise TypeError(f"comp must be a 2-D uint8 tensor, got {comp.dtype} {tuple(comp.shape)}")
+    h, w = comp.shape
+    if h % TILE or w % TILE:
+        raise ValueError(f"composite sides must be multiples of {TILE}, got {h}x{w}")
+    if tuple(mask.shape) != (h, w) or mask.dtype != torch.bool:
+        raise ValueError(f"mask must be bool of shape {(h, w)}")
+    if mask.device != comp.device:
+        raise ValueError("mask must lie on the composite's device")
+    if comp.device.type == "cpu":
+        check_mask_np(mask.numpy(), comp.shape)
+        return detect_fused_plain(comp, mask, ini_th, min_th)
+    if comp.device.type != "cuda":
+        raise ValueError(f"detect_fused: unsupported device {comp.device}")
+    comp = comp.contiguous()
+    mask = mask.contiguous()
+    sel = torch.empty((h, w), dtype=torch.int32, device=comp.device)
+    out = torch.empty((h, w), dtype=torch.int32, device=comp.device)
+    err = _build.kernels().detect_fused(
+        comp.data_ptr(), mask.data_ptr(), sel.data_ptr(), out.data_ptr(), h, w,
+        int(ini_th), int(min_th), stream_handle(comp),
+    )
+    detect_fused.launches += 1
+    _build.check_launch("detect_fused", err)
+    return out
+
+
+detect_fused.launches = 0
+
+
 def detect_two_threshold_multi(
-    crops: list, ini_th: int, min_th: int, mask: torch.Tensor | None = None
+    crops: list, ini_th: int, min_th: int, mask: torch.Tensor | None = None,
+    fused: bool = False,
 ) -> list:
     """NMS'd score maps of SEVERAL detection crops in one composite pass.
 
     The crops are shelf-packed into one composite exactly as the reference
-    lays it out (so the per-tile retry grid stays anchored per crop), the
-    score runs once (one B1 launch on CUDA), then the per-32x32-tile
-    two-threshold retry (a tile keeps scores >= ini_th if it has any, else
-    scores >= min_th) and strict 3x3 NMS.  `mask` is the layout's interior
+    lays it out (so the per-tile retry grid stays anchored per crop).  By
+    default the score runs once (one B1 launch on CUDA), then the
+    per-32x32-tile two-threshold retry and strict 3x3 NMS as tensor code;
+    `fused` runs all three in B3 instead (the reference's
+    ORBSLAM3_TPU_PALLAS_DETECT=1 path).  `mask` is the layout's interior
     mask, precomputed by a caller that runs the same geometry repeatedly."""
     if not crops:
         return []
     comp, meta, mask_np = detection_composite(crops)
     if mask is None:
         mask = torch.from_numpy(mask_np).to(comp.device)
-    raw = raw_score_map(comp, mask)
-    hi = torch.where(raw >= ini_th, raw, 0)
-    lo = torch.where(raw >= min_th, raw, 0)
-    h_comp, w_comp = comp.shape
-    tile_max = hi.view(h_comp // TILE, TILE, w_comp // TILE, TILE).amax(dim=(1, 3))
-    use_hi = (tile_max > 0).repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
-    score = nms3(torch.where(use_hi, hi, lo))
+    if fused:
+        score = detect_fused(comp, mask, ini_th, min_th)
+    else:
+        score = retry_nms(raw_score_map(comp, mask), ini_th, min_th)
     return [score[y0 : y0 + h, x0 : x0 + w] for (y0, x0, h, w) in meta]

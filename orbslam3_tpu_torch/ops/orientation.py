@@ -2,8 +2,9 @@
 
 Counterpart of ``orbslam3_tpu/ops/orientation.py``: exact integer
 intensity-centroid moments over the circular 31x31 patch (B2 gather + an
-int32 weighted sum), then f32 atan2 in degrees, shifted into [0, 360).
-atan2 may differ from XLA's by ulps (C-h2).
+int32 weighted sum, or the fused B4 kernel with `fused`), then f32 atan2
+in degrees, shifted into [0, 360).  atan2 may differ from XLA's by ulps
+(C-h2).
 """
 
 from __future__ import annotations
@@ -21,13 +22,14 @@ def ic_weights(device) -> torch.Tensor:
 
 
 def ic_angles(
-    img: torch.Tensor, xy: torch.Tensor, weights: torch.Tensor | None = None
+    img: torch.Tensor, xy: torch.Tensor, weights: torch.Tensor | None = None,
+    fused: bool = False,
 ) -> torch.Tensor:
     """Angles in degrees [0, 360) for integer keypoint centres xy (N, 2)."""
     if weights is None:
         weights = ic_weights(img.device)
     m10, m01 = window_moments(
-        img, xy[:, 1] - HALF_PATCH_SIZE, xy[:, 0] - HALF_PATCH_SIZE, weights
+        img, xy[:, 1] - HALF_PATCH_SIZE, xy[:, 0] - HALF_PATCH_SIZE, weights, fused=fused
     )
     ang = torch.rad2deg(torch.atan2(m01, m10))
     return torch.where(ang < 0, ang + 360.0, ang)

@@ -1,8 +1,9 @@
 """The port's System tracks a synthetic stereo sequence on the CPU.
 
 Held to the bar of tests/test_slam_e2e.py: every frame tracked, ATE RMSE
-under 1 cm.  A subprocess run shows that the port never imports JAX (this
-process cannot: tests/conftest.py imports it)."""
+under 1 cm.  A subprocess run of the stereo, mono and RGB-D entry points
+shows that the port never imports JAX (this process cannot:
+tests/conftest.py imports it)."""
 
 import os
 import subprocess
@@ -67,27 +68,44 @@ def test_device_is_explicit():
         with pytest.raises(RuntimeError, match="cuda"):
             System(camera, FX * BASELINE)
     sysm = System(camera, FX * BASELINE, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        sysm.track_monocular(np.zeros((H, W), np.uint8), 0.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sysm.prefetch_stereo_batch([])
+    # stereo fisheye (lapping areas) is still to port
+    fisheye = System(camera, FX * BASELINE, lapping1=(0.0, W), device="cpu")
+    img = np.zeros((H, W), np.uint8)
+    with pytest.raises(NotImplementedError, match="A10"):
+        fisheye.track_stereo(img, img, 0.0)
+    with pytest.raises(NotImplementedError, match="A10"):
+        fisheye.prefetch_stereo(img, img)
 
 
 def test_port_never_imports_jax():
     script = textwrap.dedent(
         """
         import sys
-        from orbslam3_tpu_torch import Pinhole, PyramidParams, stereo_sequence
+        from orbslam3_tpu_torch import (
+            FusedKernels, Pinhole, PyramidParams, rgbd_sequence, stereo_sequence,
+        )
         from orbslam3_tpu_torch.slam.system import System
 
         cam = Pinhole([350.0, 350.0, 160.0, 120.0])
-        sysm = System(cam, 42.0, PyramidParams(n_features=500), device="cpu")
+        params = PyramidParams(n_features=500)
+        sysm = System(cam, 42.0, params, device="cpu")
         frames = stereo_sequence(2, cam, 0.12, 240, 320, seed=1)
         for k, (l, r, _) in enumerate(frames):
             sysm.track_stereo(l, r, timestamp=k / 20.0)
         handle = sysm.prefetch_stereo(frames[0][0], frames[0][1])
         sysm.track_stereo_prefetched(handle, timestamp=0.1)
         sysm.shutdown()
+        fused = FusedKernels(True, True, True)
+        mono = System(cam, 0.0, params, sensor=System.MONOCULAR, device="cpu", fused=fused)
+        for k, (l, _, _) in enumerate(frames):
+            mono.track_monocular(l, timestamp=k / 20.0)
+        mono.shutdown()
+        rgbd = System(cam, 28.0, params, sensor=System.RGBD, device="cpu", fused=fused)
+        for k, (img, depth, _) in enumerate(rgbd_sequence(2, cam, 240, 320, seed=2)):
+            rgbd.track_rgbd(img, depth, timestamp=k / 20.0)
+        rgbd.shutdown()
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("NO_JAX_OK")
         """
