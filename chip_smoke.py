@@ -7,7 +7,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
   2. build the hand-written kernels from orbslam3_tpu_torch/csrc;
   3. each kernel against its plain PyTorch twin on the card, bit-exact, at
      the shapes of the main path (752x480 stereo, 8 levels, 1000 features),
-     with both times from CUDA events;
+     with both times from CUDA events (per call, and as device time over
+     the replay of a CUDA graph of 20 calls);
   4. the stereo tracking path through its entry points: System.track_stereo
      over a 30-frame synthetic sequence, save_trajectory_tum, shutdown —
      every frame tracked, ATE RMSE under 1 cm, one B1 and four B2 launches
@@ -30,11 +31,26 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
  10. fused against default on one frame: the stereo front-end's and the
      mono extractor's packed outputs equal column for column;
  11. torch.profiler: the stereo and mono front-ends' device-busy time and
-     device ops per frame, default and fused side by side.
+     device ops per frame, default and fused side by side;
+ 12. the A/B harness of the FAST-score variants T1-T4
+     (orbslam3_tpu_torch.tools.bench_fast_variants): its check pass, every
+     case of the four TPU harnesses on the 2112x736 harness image and the
+     3264x736 stereo detection composite bit-exact against the plain
+     versions, with the launches counted; every case again on an odd 97x211
+     image (partial tiles, the packed kernel's odd-width tail), bit-exact;
+     then the harness's timing pass (device time and bound per case) and
+     each function's default case against its plain version, both timed;
+ 13. the dense SearchByProjection matcher that tracking runs on the
+     System's device at >= 30000 local-map candidates
+     (ops/matching.search_by_projection_batch), at 30000 map points x 1000
+     keypoints, on the card against the CPU: integers equal, card time.
 
-The line before last is the JSON kernel report (launches: phase 4's for
-B1 and B2, phases 8 and 9's for B3, B4 and B5), the last line the JSON
-result.  Imports nothing of JAX.
+Phase 2 also requires the port's native host library to build
+(`native.available()`).  Last, no module of JAX or of the JAX package may
+be loaded.  The line before last is the JSON kernel report (launches:
+phase 4's for B1 and B2, phases 8 and 9's for B3, B4 and B5, phase 12's
+check pass for T1-T4; bounds computed from this run's shapes), the last line the
+JSON result.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -50,93 +66,38 @@ import time
 import numpy as np
 import torch
 
+from orbslam3_tpu_torch.utils.device_time import (
+    FAST_SCORE_OPS_PER_PX,
+    INT16X2_OPS_PER_S,
+    NO_TRACE,
+    bound_ms,
+    cuda_ms,
+    device_ms,
+    device_profile,
+)
+
 H, W = 480, 752
 FX = 435.2
 BASELINE = 0.11
 N_FRAMES = 30
 SEED = 1
-REPS = 30
+
+# the least integer ops per pixel of B1's function, all in 16-bit lanes:
+# the FAST score and the mask; B3's adds the two thresholds, the tile's
+# choice and the 3x3 NMS
+B1_OPS_PER_PX = FAST_SCORE_OPS_PER_PX + 1
+B3_OPS_PER_PX = B1_OPS_PER_PX + 2 + 2 + 9
+# the dense matcher's inputs: map points x frame keypoints
+MATCH_M, MATCH_K = 30000, 1000
+# the tracking paths launch none of the A/B variants T1-T4
+NO_T_LAUNCHES = {f"fast_variant_t{i}": 0 for i in range(1, 5)}
 
 
 def phase(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def cuda_ms(fn, reps: int = REPS) -> float:
-    """Median device time of fn() in ms (CUDA events, after warm-up)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-PROFILE_TRIES = 6
-NO_TRACE = ("the profiler's traces held no device event: the busy time below is not "
-            "measured")
-
-
-def device_profile(fn, reps: int = 10):
-    """(event ms per call, {op: device ms per call}, device ops launched
-    per call) of fn() under torch.profiler: kernels, memcpys, memsets.
-
-    Now and then the profiler's trace comes back holding no device event at
-    all (on an H100 about 3 sessions in 1000, often two or three in a row);
-    every fn profiled here launches device work, so such a session is run
-    again, up to PROFILE_TRIES times.  If every one came back empty, the
-    dict is empty and the caller says the time was not measured."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-        # device-side events only (kernels, memcpy, memset): the CPU ops that
-        # launched them carry the same time again, and a record_function range
-        # shows on the device too, under its CPU name, spanning its kernels
-        avgs = prof.key_averages()
-        cpu_keys = {a.key for a in avgs if a.device_type == DeviceType.CPU}
-        dev = [
-            a for a in avgs
-            if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0
-            and a.key not in cpu_keys
-        ]
-        if dev:
-            break
-    ops = {a.key: a.self_device_time_total / 1e3 / reps for a in dev}
-    return start.elapsed_time(end) / reps, ops, sum(a.count for a in dev) / reps
-
-
-def device_ms(fn, kernel: str | tuple | None = None) -> tuple[float, str]:
-    """(ms, how) per call of fn(): the device time of the kernel(s) named
-    `kernel`, or of all its device ops when `kernel` is None, from
-    torch.profiler ("profiler"); where the profiler's traces held none of
-    them, the median window between CUDA events around fn() ("events")."""
-    _, ops, _ = device_profile(fn)
-    names = None if kernel is None else (kernel,) if isinstance(kernel, str) else kernel
-    ms = sum(t for key, t in ops.items() if names is None or any(n in key for n in names))
-    if ms > 0:
-        return ms, "profiler"
-    return cuda_ms(fn), "events"
-
-
-def kernel_vs_twin(label: str, kernel_fn, twin_fn, names) -> tuple[float, float, float]:
+def kernel_vs_twin(label: str, kernel_fn, twin_fn) -> tuple[float, float, float]:
     """(max abs err, kernel device ms, twin device ms) of a wrapper call
     against its plain twin on the same card tensors; fails unless equal."""
     got, want = kernel_fn(), twin_fn()
@@ -145,10 +106,8 @@ def kernel_vs_twin(label: str, kernel_fn, twin_fn, names) -> tuple[float, float,
         got, want = torch.stack(got), torch.stack(want)
     err = max_abs_err(got, want)
     require(err == 0, f"{label}: kernel != twin (max abs err {err})")
-    kdev, khow = device_ms(kernel_fn, names)
-    pdev, phow = device_ms(twin_fn)
-    phase(f"7 {label}: bit-exact, device time kernel {kdev:.4f} ms ({khow}), twin "
-          f"{pdev:.4f} ms ({phow})")
+    kdev, pdev = device_ms(kernel_fn), device_ms(twin_fn)
+    phase(f"7 {label}: bit-exact, device time kernel {kdev:.4f} ms, twin {pdev:.4f} ms")
     return err, kdev, pdev
 
 
@@ -176,6 +135,27 @@ def run_entry_point(name: str, system, steps, tag: str, port, bench) -> dict:
           f"{statistics.median(fe_ms[1:]):.4f}, first {fe_ms[0]:.4f})")
     phase(f"{name} kernel launches in the run: {launches}; map {stats}")
     return dict(est=est, gt=gt, states=states, launches=launches, n=len(steps))
+
+
+def matcher_inputs(m: int, k: int) -> list:
+    """Numpy inputs of search_by_projection_batch, from SEED: map-point
+    descriptors copied from keypoints with a bit flipped, many from the
+    same keypoint, and duplicated keypoints, so distances tie."""
+    rng = np.random.default_rng(SEED)
+    kp_desc = rng.integers(0, 256, (k, 32), dtype=np.uint8)
+    src = rng.integers(0, k // 6, m)
+    mp_desc = kp_desc[src].copy()
+    flip = rng.integers(0, 32, m)
+    mp_desc[np.arange(m), flip] ^= np.uint8(1) << rng.integers(0, 8, m).astype(np.uint8)
+    kp_desc[k // 2 :] = kp_desc[: k - k // 2]
+    kp_xy = rng.uniform(0, W, (k, 2)).astype(np.float32)
+    kp_xy[k // 2 :] = kp_xy[: k - k // 2]
+    proj = (kp_xy[src] + rng.normal(0, 3, (m, 2))).astype(np.float32)
+    return [
+        proj, rng.integers(0, 8, m).astype(np.int32), rng.uniform(2, 30, m).astype(np.float32),
+        mp_desc, rng.random(m) < 0.9,
+        kp_xy, rng.integers(0, 8, k).astype(np.int32), kp_desc, rng.random(k) < 0.9,
+    ]
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -228,6 +208,10 @@ def main() -> int:
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             phase("  ptxas: " + line.strip())
+    from orbslam3_tpu_torch import native
+
+    phase(f"2 native host library (g++): native.available() = {native.available()}")
+    require(native.available(), "the port's native host library did not build")
 
     # phase 3 -------------------------------------------------------------
     camera = port.Pinhole([FX, FX, W / 2, H / 2])
@@ -252,15 +236,19 @@ def main() -> int:
         require(err == 0, f"B1 {name}: kernel != twin (max abs err {err})")
         ms = cuda_ms(lambda: fast.raw_score_map(img, m))
         plain = cuda_ms(lambda: fast.raw_score_map_plain(img, m))
-        kdev, khow = device_ms(lambda: fast.raw_score_map(img, m), "fast_score_kernel")
-        pdev, phow = device_ms(lambda: fast.raw_score_map_plain(img, m))
+        kdev = device_ms(lambda: fast.raw_score_map(img, m))
+        pdev = device_ms(lambda: fast.raw_score_map_plain(img, m))
         phase(f"3 B1 {name} {tuple(img.shape)}: bit-exact, median per call (events) kernel "
-              f"{ms:.4f} ms, twin {plain:.4f} ms; device time kernel {kdev:.4f} ms ({khow}), "
-              f"twin {pdev:.4f} ms ({phow})")
+              f"{ms:.4f} ms, twin {plain:.4f} ms; device time kernel {kdev:.4f} ms, "
+              f"twin {pdev:.4f} ms")
         return err, kdev, pdev
 
     err, ms, plain = b1_case("detection composite", comp, fe.det_mask)
-    report["fast_score"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    n_px = comp.numel()
+    # img + mask read, int32 written
+    bound, bound_by = bound_ms(6 * n_px, B1_OPS_PER_PX * n_px, INT16X2_OPS_PER_S)
+    report["fast_score"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                                bound_by=bound_by, library_ms=None)
     odd = torch.randint(0, 256, (97, 211), dtype=torch.uint8,
                         generator=torch.Generator().manual_seed(SEED)).to(dev)
     err_odd, _, _ = b1_case("odd size, frame test", odd, None)
@@ -270,7 +258,7 @@ def main() -> int:
     img2d = comps.bordered
     hc, wc = img2d.shape
     rng = np.random.default_rng(SEED)
-    b2_err, b2_ms, b2_plain = 0.0, 0.0, 0.0
+    b2_err, b2_ms, b2_plain, b2_bytes, b2_lib = 0.0, 0.0, 0.0, 0, 0.0
     for nr, nc, k in ((31, 31, 2000), (37, 37, 2000), (11, 11, 1000), (11, 21, 1000)):
         r = rng.integers(0, hc - nr + 1, k).astype(np.int32)
         c = rng.integers(0, wc - nc + 1, k).astype(np.int32)
@@ -284,17 +272,24 @@ def main() -> int:
         require(err == 0, f"B2 {nr}x{nc} K={k}: kernel != twin (max abs err {err})")
         ms = cuda_ms(lambda: wg.gather_windows(img2d, r, c, nr, nc))
         plain = cuda_ms(lambda: wg.gather_windows_plain(img2d, r, c, nr, nc))
-        kdev, khow = device_ms(
-            lambda: wg.gather_windows(img2d, r, c, nr, nc), "gather_windows_kernel"
-        )
-        pdev, phow = device_ms(lambda: wg.gather_windows_plain(img2d, r, c, nr, nc))
+        kdev = device_ms(lambda: wg.gather_windows(img2d, r, c, nr, nc))
+        pdev = device_ms(lambda: wg.gather_windows_plain(img2d, r, c, nr, nc))
+        # the library call: one advanced-indexing gather, its indices made beforehand
+        rows = r.long().clamp(0, hc - nr)[:, None] + torch.arange(nr, device=dev)
+        cols = c.long().clamp(0, wc - nc)[:, None] + torch.arange(nc, device=dev)
+        ri, ci = rows[:, :, None], cols[:, None, :]
+        lib = device_ms(lambda: img2d[ri, ci])
         phase(f"3 B2 {nr}x{nc} K={k} on {hc}x{wc}: bit-exact, median per call (events) "
-              f"kernel {ms:.4f} ms, twin {plain:.4f} ms; device time kernel {kdev:.4f} ms "
-              f"({khow}), twin {pdev:.4f} ms ({phow})")
+              f"kernel {ms:.4f} ms, twin {plain:.4f} ms; device time kernel {kdev:.4f} ms, "
+              f"twin {pdev:.4f} ms, advanced indexing {lib:.4f} ms")
         b2_err, b2_ms, b2_plain = max(b2_err, err), b2_ms + kdev, b2_plain + pdev
-    # the report's times are device times (profiler); B2's is the four
-    # main-path launches of one frame together
-    report["gather_windows"] = dict(max_abs_err=b2_err, ms=b2_ms, plain_ms=b2_plain)
+        b2_bytes += 2 * k * nr * nc + 8 * k  # windows read and written, starts read
+        b2_lib += lib
+    # the report's times are device times (CUDA graph replays); B2's is the
+    # four main-path launches of one frame together
+    bound, bound_by = bound_ms(b2_bytes)
+    report["gather_windows"] = dict(max_abs_err=b2_err, ms=b2_ms, plain_ms=b2_plain,
+                                    bound_ms=bound, bound_by=bound_by, library_ms=b2_lib)
 
     # phase 4 -------------------------------------------------------------
     sysm = System(camera, mbf, params, device="cuda")
@@ -332,7 +327,8 @@ def main() -> int:
     require(len(est) == N_FRAMES and n_saved == N_FRAMES, "missing poses")
     require(ate < 0.01, f"ATE RMSE {ate} m >= 1 cm")
     require(launches == {"fast_score": N_FRAMES, "gather_windows": 4 * N_FRAMES,
-                         "detect_fused": 0, "window_moments": 0, "sample_windows": 0},
+                         "detect_fused": 0, "window_moments": 0, "sample_windows": 0,
+                         **NO_T_LAUNCHES},
             f"expected 1 B1 + 4 B2 launches per frame, got {launches}")
     require("jax" not in sys.modules, "the port imported JAX")
 
@@ -416,11 +412,13 @@ def main() -> int:
             f"B3 {label} detection composite {tuple(img.shape)}",
             lambda: fast.detect_fused(img, m, params.ini_th_fast, params.min_th_fast),
             lambda: fast.detect_fused_plain(img, m, params.ini_th_fast, params.min_th_fast),
-            ("detect_select_kernel", "nms3_kernel"),
         ))
     # the report's times are those of the mono composite, the path's shape
+    n_px = mono_comp.numel()
+    bound, bound_by = bound_ms(6 * n_px, B3_OPS_PER_PX * n_px, INT16X2_OPS_PER_S)
     report["detect_fused"] = dict(max_abs_err=max(e for e, _, _ in b3), ms=b3[0][1],
-                                  plain_ms=b3[0][2])
+                                  plain_ms=b3[0][2], bound_ms=bound, bound_by=bound_by,
+                                  library_ms=None)
     mono_comps = ex.build_merged_composites([mono_pyr], fe_mono)
     hm, wm = mono_comps.bordered.shape
     require((hm, wm) == (1762, 760), f"mono merged composite {hm}x{wm}")
@@ -439,10 +437,13 @@ def main() -> int:
             f"B4 31x31 moments K={k} on {hm}x{wm}",
             lambda: wg.window_moments(mono_comps.bordered, r, c, fe_mono.ic_weights, fused=True),
             lambda: wg.window_moments_plain(mono_comps.bordered, r, c, fe_mono.ic_weights),
-            "window_moments_kernel",
         )
+    # K windows of 31x31 u8 and the two weight planes read, (K, 2) f32
+    # written; a multiply and an add per weight and pixel
+    bound, bound_by = bound_ms(1000 * (961 + 8 + 8) + 2 * 961 * 4, 1000 * 2 * 961 * 2)
     report["window_moments"] = dict(max_abs_err=max(v[0] for v in b4.values()),
-                                     ms=b4[1000][1], plain_ms=b4[1000][2])
+                                     ms=b4[1000][1], plain_ms=b4[1000][2], bound_ms=bound,
+                                     bound_by=bound_by, library_ms=None)
     b5 = {}
     for k in (1000, 5000):
         r, c = starts(k, 37)
@@ -452,14 +453,23 @@ def main() -> int:
             f"B5 37x37 x 512 samples K={k} on {hm}x{wm}",
             lambda: wg.sample_windows(mono_comps.sampling, r, c, ri, ci, 37, 37, fused=True),
             lambda: wg.sample_windows_plain(mono_comps.sampling, r, c, ri, ci, 37, 37),
-            "sample_windows_kernel",
         )
+        if k == 1000:  # the library call: one advanced-indexing pick
+            hs, ws = mono_comps.sampling.shape
+            rr = r.long().clamp(0, hs - 37)[:, None] + ri.long()
+            cc = c.long().clamp(0, ws - 37)[:, None] + ci.long()
+            b5_lib = device_ms(lambda: mono_comps.sampling[rr, cc])
+            phase(f"7 B5 K=1000 advanced indexing {b5_lib:.4f} ms")
+    # the 37x37 windows, both (K, 512) int32 index planes and the starts
+    # read, (K, 512) u8 written
+    bound, bound_by = bound_ms(1000 * (37 * 37 + 512 * 8 + 8 + 512))
     report["sample_windows"] = dict(max_abs_err=max(v[0] for v in b5.values()),
-                                     ms=b5[1000][1], plain_ms=b5[1000][2])
+                                     ms=b5[1000][1], plain_ms=b5[1000][2], bound_ms=bound,
+                                     bound_by=bound_by, library_ms=b5_lib)
 
     # phase 8: track_monocular under the fused configuration ---------------
     per_frame = {"fast_score": 0, "gather_windows": 0, "detect_fused": 1,
-                 "window_moments": 1, "sample_windows": 1}
+                 "window_moments": 1, "sample_windows": 1, **NO_T_LAUNCHES}
     mono = System(camera, 0.0, params, sensor=System.MONOCULAR, sequential=True,
                   max_frames=8, device="cuda", fused=fused)
     mono_steps = [
@@ -531,6 +541,64 @@ def main() -> int:
                   f"{n_ops:.0f} device ops/frame")
     require("jax" not in sys.modules, "the port imported JAX")
 
+    # phase 12: the A/B harness of the FAST-score variants T1-T4 -----------
+    from orbslam3_tpu_torch.ops import fast_variants as fv
+    from orbslam3_tpu_torch.tools import bench_fast_variants as bfv
+
+    images = {"harness": torch.from_numpy(bfv.harness_image()).to(dev), "stereo composite": comp}
+    port.reset_kernel_launches()
+    results = bfv.check(images, log=lambda line: phase("12 " + line))
+    t_launches = {k: v for k, v in port.kernel_launches().items() if k.startswith("fast_variant")}
+    phase(f"12 harness check pass: {len(results)} cases, kernel launches in it: {t_launches}")
+    require(all(r["max_abs_err"] == 0 for r in results), "a T1-T4 case differs from its plain version")
+    require(all(v > 0 for v in t_launches.values()), f"a T1-T4 kernel never launched: {t_launches}")
+    odd_results = bfv.check({"odd": odd}, log=lambda line: phase("12 " + line))
+    require(all(r["max_abs_err"] == 0 for r in odd_results),
+            "a T1-T4 case differs from its plain version on the odd 97x211 image")
+    bfv.time_cases(images, results, log=lambda line: phase("12 " + line))
+    defaults = {  # each TPU function's default case
+        "t1": (False, None, None), "t2": (32,), "t3": (48, 384, "twopass"),
+        "t4": (48, 384, fv.VANHERK),
+    }
+    for fn, args in defaults.items():
+        wrapper, plain, _ = bfv.FUNCTIONS[fn]
+        for image_name, img in images.items():
+            got, want = wrapper(img, *args), plain(img, *args)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            require(err == 0, f"{fn} {image_name}: kernel != plain (max abs err {err})")
+            kdev, pdev = device_ms(lambda: wrapper(img, *args)), device_ms(lambda: plain(img, *args))
+            bound, bound_by = bfv.score_bound_ms(img.shape)
+            phase(f"12 {fn} default {args} on {image_name} {tuple(img.shape)}: bit-exact, "
+                  f"device time kernel {kdev:.4f} ms, plain {pdev:.4f} ms, "
+                  f"bound {bound:.4f} ms ({bound_by}), launches {t_launches[f'fast_variant_{fn}']}")
+            if image_name == "harness":  # the report's shape: the harness's own image
+                report[f"fast_variant_{fn}"] = dict(
+                    max_abs_err=err, ms=kdev, plain_ms=pdev, bound_ms=bound, bound_by=bound_by,
+                    library_ms=None,
+                )
+
+    # phase 13: the dense matcher on the card against the CPU --------------
+    from orbslam3_tpu_torch.ops import matching
+
+    args = matcher_inputs(MATCH_M, MATCH_K)
+    t0 = time.perf_counter()
+    on_cpu = matching.search_by_projection_batch(*map(torch.from_numpy, args))
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    card_args = [torch.from_numpy(a).to(dev) for a in args]
+    on_card = matching.search_by_projection_batch(*card_args)
+    for name, a, b in zip(("best index", "best distance", "matched"), on_card, on_cpu):
+        require(a.dtype == b.dtype and torch.equal(a.cpu(), b), f"dense matcher: {name} differs")
+    require(int(on_cpu[2].sum()) > 0, "dense matcher: no map point matched")
+    card_ms = device_ms(lambda: matching.search_by_projection_batch(*card_args))
+    phase(f"13 search_by_projection_batch {MATCH_M} x {MATCH_K}: card == CPU (ints equal, "
+          f"{int(on_cpu[2].sum())} matched); device time {card_ms:.4f} ms, CPU wall "
+          f"{cpu_ms:.4f} ms")
+
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu"))
+    phase(f"modules of JAX or the JAX package loaded: {leaked or 'none'}")
+    require(not leaked, f"the port imported {leaked}")
+
     kernels = [
         dict(name="fast_score", route="cuda", source="orbslam3_tpu_torch/csrc/fast_score.cu",
              replaces="orbslam3_tpu/ops/fast.py:101", launches=launches["fast_score"],
@@ -551,6 +619,14 @@ def main() -> int:
              source="orbslam3_tpu_torch/csrc/sample_windows.cu",
              replaces="orbslam3_tpu/ops/window_gather.py:256",
              launches=fused_launches["sample_windows"], **report["sample_windows"]),
+    ] + [
+        dict(name=f"fast_variant_{fn}", route="cuda",
+             source="orbslam3_tpu_torch/csrc/fast_variants.cu", replaces=replaces,
+             launches=t_launches[f"fast_variant_{fn}"], **report[f"fast_variant_{fn}"])
+        for fn, replaces in (
+            ("t1", "tools/bench_fast_variants.py:49"), ("t2", "tools/bench_fast_variants2.py:100"),
+            ("t3", "tools/bench_fast_variants3.py:63"), ("t4", "tools/bench_fast_variants4.py:71"),
+        )
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,6 +8,9 @@ Nothing is built when a module is imported: the first kernel launch calls
 headers and flags, so an edited kernel rebuilds) and loads the library once
 per process.  A failed build raises; no caller falls back to a plain
 version.
+
+`host_library` builds the port's C++ host libraries (``native/src``) with
+g++ into the same directory.
 """
 
 from __future__ import annotations
@@ -50,6 +53,14 @@ _SIGNATURES = {
     "window_moments": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
     # sample_windows(img, h, w, row0, col0, ridx, cidx, k, s, nr, nc, out, stream)
     "sample_windows": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # fast_variant_t1(img, out, h, w, cast_early, chain16, in_kind, stream)
+    "fast_variant_t1": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # fast_variant_t2(img, out, h, w, strip, arc, chunk_rows, chunk_cols, stream)
+    "fast_variant_t2": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # fast_variant_t3(img, out, h, w, strip, chunk, twopass, stream)
+    "fast_variant_t3": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # fast_variant_t4(img, out, h, w, strip, chunk, win, stream)
+    "fast_variant_t4": [_P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -141,6 +152,33 @@ def kernels() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def host_library(src: str, stem: str, suffix: str, flags) -> str | None:
+    """Path of ``<stem>_<hash><suffix>`` under ``_build/``, built from the
+    C++ source `src` with ``g++ <flags> src`` unless it is there already
+    (the hash covers the source and the flags, so an edited source builds
+    anew); None when g++ fails.  The build writes a temporary name and
+    renames it, so concurrent processes never load half a file."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(Path(src).read_bytes())
+    so = BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}{suffix}"
+    if so.exists():
+        return str(so)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f".{stem}_", suffix=suffix)
+    os.close(fd)
+    try:
+        subprocess.run(
+            ["g++", *flags, str(src), "-o", tmp], check=True, capture_output=True, timeout=120,
+        )
+        os.replace(tmp, so)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return str(so)
 
 
 def check_launch(name: str, err: int) -> None:

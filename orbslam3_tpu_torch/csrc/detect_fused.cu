@@ -18,8 +18,8 @@
 //      into a (h, w) int32 scratch;
 //   2. one block per 32x8 strip stages a (8+2)x(32+2) halo of the selected
 //      map (zero outside) and writes the NMS'd map.
-// Bound on the H100: pass 1 is the B1 score (~300 int ops/px, integer
-// issue); pass 2 reads and writes 4 B/px, ~10 MB for the 3264x736 stereo
+// Bound on the H100: pass 1 is the B1 score (at least 165 int ops/px, 16-bit
+// lanes, integer issue); pass 2 reads and writes 4 B/px, ~10 MB for the 3264x736 stereo
 // composite, a few microseconds of HBM time.  The scratch round trip is what
 // the TPU kernel avoided; at these sizes it sits in the 50 MB L2.
 

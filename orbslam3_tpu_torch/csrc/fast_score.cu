@@ -8,9 +8,11 @@
 //
 // Bound on the H100: per output pixel the kernel reads 1 B of image (plus
 // 1 B of mask) and writes 4 B, ~6 B/px — about 4 us of HBM time for the
-// 3264x736 stereo detection composite.  The arithmetic is ~16 subtractions
-// plus 2 x 16 x 8 integer min/max, ~300 int ops/px, so the kernel is bound
-// by integer issue, not memory.  Design: each 32x8 block stages its
+// 3264x736 stereo detection composite.  The kernel's arithmetic is ~16
+// subtractions plus 2 x 16 x 8 int32 min/max, ~300 ops/px; the function
+// needs at least 165 (utils/device_time.FAST_SCORE_OPS_PER_PX, van Herk,
+// 16-bit lanes), ~6 us at 66.9 Tops/s, so integer issue bounds it, not
+// memory.  Design: each 32x8 block stages its
 // (8+6)x(32+6) u8 halo in shared memory once (every pixel is read by 49
 // neighbours' rings), the 16 differences live in registers, and the arc
 // min/max chains are fully unrolled.  No TPU layout carries over.

@@ -12,9 +12,9 @@ rBRIEF run B4 and B5 instead of their two B2 gathers; the SAD refinement
 keeps its two B2 launches.
 
 `StereoFrontEnd` holds the constant tables of one image geometry as module
-buffers; `StereoFrontEnd.from_reference` builds them from the JAX
-package's own numpy tables, so both packages compute from identical
-numbers.  The reference's masked-lane-reduce lookups are plain indexing
+buffers; `StereoFrontEnd.from_reference` builds them from the numpy
+oracle tables (``oracle/orb_cpu.py``, the port's copy of the JAX
+package's), so both packages compute from identical numbers.  The reference's masked-lane-reduce lookups are plain indexing
 here.
 """
 
@@ -26,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from orbslam3_tpu.oracle.orb_cpu import PyramidParams
+from orbslam3_tpu_torch.oracle.orb_cpu import PyramidParams
 from orbslam3_tpu_torch.ops.extractor import (
     PACK_COLS,
     FrameFeatures,
@@ -187,7 +187,7 @@ class StereoFrontEnd(TableModule):
         cls, params: PyramidParams, image_hw: tuple, mbf: float = DEFAULT_MBF,
         fx: float = DEFAULT_FX, fused: FusedKernels = FusedKernels(),
     ) -> "StereoFrontEnd":
-        """Constant tables from the JAX package's numpy sources: the
+        """Constant tables from the numpy oracle's sources: the
         extractor's tables of both cameras (`extraction_tables_np`) plus the
         level sizes and scale factors of `PyramidParams` for the matcher."""
         h, w = image_hw

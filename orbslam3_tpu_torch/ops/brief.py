@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from orbslam3_tpu.ops.brief_pattern import BIT_PATTERN_31
+from orbslam3_tpu_torch.ops.brief_pattern import BIT_PATTERN_31
 from orbslam3_tpu_torch.ops.pyramid import reflect101_pad
 from orbslam3_tpu_torch.ops.window_gather import sample_windows
 

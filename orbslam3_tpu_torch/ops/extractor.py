@@ -23,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from orbslam3_tpu.oracle.orb_cpu import (
+from orbslam3_tpu_torch.oracle.orb_cpu import (
     FAST_BORDER,
     PATCH_SIZE,
     PyramidParams,
@@ -427,7 +427,7 @@ class TableModule(torch.nn.Module):
 
 def extraction_tables_np(params: PyramidParams, image_hw: tuple, n_cams: int) -> dict:
     """The extractor's constant tables for `n_cams` cameras of one geometry,
-    from the JAX package's numpy sources: the resize taps
+    from the numpy oracle's sources (the port's copy): the resize taps
     (`_linear_coeffs`), blur taps (`gaussian_kernel7_fixed`), IC moment
     weights (`ic_moment_weights`), BRIEF pattern (`BIT_PATTERN_31`) and the
     detection mask of every camera's active crops.  The flat geometry adds
@@ -480,7 +480,7 @@ class FeatureExtractor(TableModule):
     def from_reference(
         cls, params: PyramidParams, image_hw: tuple, fused: FusedKernels = FusedKernels()
     ) -> "FeatureExtractor":
-        """Tables from the JAX package's numpy sources (`extraction_tables_np`)."""
+        """Tables from the numpy oracle's sources (`extraction_tables_np`)."""
         return cls(params, image_hw, extraction_tables_np(params, tuple(image_hw), 1), fused)
 
     def forward(self, image: torch.Tensor) -> FrameFeatures:

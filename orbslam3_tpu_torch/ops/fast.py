@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from orbslam3_tpu.oracle.orb_cpu import FAST_RING
+from orbslam3_tpu_torch.oracle.orb_cpu import FAST_RING
 from orbslam3_tpu_torch import _build
 from orbslam3_tpu_torch._device import stream_handle
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from orbslam3_tpu.oracle.orb_cpu import HALF_PATCH_SIZE, ic_moment_weights
+from orbslam3_tpu_torch.oracle.orb_cpu import HALF_PATCH_SIZE, ic_moment_weights
 from orbslam3_tpu_torch.ops.window_gather import window_moments
 
 

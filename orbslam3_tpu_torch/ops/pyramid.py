@@ -15,7 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from orbslam3_tpu.oracle.orb_cpu import (
+from orbslam3_tpu_torch.oracle.orb_cpu import (
     PyramidParams,
     _linear_coeffs,
     gaussian_kernel7_fixed,

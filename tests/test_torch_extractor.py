@@ -10,6 +10,8 @@ octave, size, valid) must be equal.  With platform trig, angles agree to
 packages (atan2 of the exact moments and cos/sin computed in numpy),
 angles and descriptors must be equal too."""
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -19,7 +21,7 @@ from orbslam3_tpu.ops import brief as jb
 from orbslam3_tpu.ops import extractor as jex
 from orbslam3_tpu.ops import orientation as jo
 from orbslam3_tpu.oracle.orb_cpu import HALF_PATCH_SIZE, PyramidParams
-from orbslam3_tpu_torch import FusedKernels
+from orbslam3_tpu_torch import FusedKernels, PyramidParams as TPyramidParams
 from orbslam3_tpu_torch.ops import brief as tb
 from orbslam3_tpu_torch.ops import extractor as tex
 from orbslam3_tpu_torch.ops import window_gather as twg
@@ -41,6 +43,7 @@ def _image(h, w, seed=4):
 
 def _port(geometry, config):
     hw, params, flat = GEOMETRIES[geometry]
+    params = TPyramidParams(**dataclasses.asdict(params))  # the port's own class
     fe = tex.FeatureExtractor.from_reference(params, hw, CONFIGS[config])
     assert ("merged_mask" in dict(fe.named_buffers())) == flat
     return fe(torch.from_numpy(_image(*hw)))
@@ -118,7 +121,7 @@ def test_extract_features_exact_with_pinned_trig(geometry, config, monkeypatch):
 
 
 def test_cached_extractor_and_input_checks():
-    params = PyramidParams(n_features=500)
+    params = TPyramidParams(n_features=500)
     fe = tex.feature_extractor(params, (240, 320), FusedKernels(), "cpu")
     assert fe is tex.feature_extractor(params, (240, 320), FusedKernels(), "cpu")
     assert fe is not tex.feature_extractor(params, (240, 320), FusedKernels(True, True, True), "cpu")

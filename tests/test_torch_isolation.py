@@ -1,0 +1,174 @@
+"""The port stands alone: it imports neither JAX nor the JAX package.
+
+Two checks.  An AST scan of every module of the port and of chip_smoke.py
+finds no `import` / `from` of `jax*` or `orbslam3_tpu(.*)` at any depth
+(function bodies included) and no such string handed to an import
+function.  A subprocess whose `sys.meta_path` refuses `jax` and
+`orbslam3_tpu` drives the port's host paths on the CPU: stereo, mono and
+RGB-D frames, the device local-map matcher (DEVICE_MATCH_MIN lowered),
+`trace_range` and `device_trace`, the trajectory savers, and an atlas
+saved by the port and one saved by the reference, both loaded by the port.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "orbslam3_tpu")
+IMPORT_FUNCS = ("import_module", "__import__", "find_spec", "spec_from_file_location")
+
+
+def _blocked(name: str) -> bool:
+    return name.split(".")[0] in BLOCKED
+
+
+def _port_sources() -> list:
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "orbslam3_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+def test_no_module_of_the_port_imports_jax_or_the_reference():
+    found = []
+    sources = _port_sources()
+    assert len(sources) > 60  # the port's own host back-end is there
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+                names = [node.module]
+            elif isinstance(node, ast.Call):
+                fn = node.func
+                fname = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+                if fname in IMPORT_FUNCS:
+                    names = [
+                        a.value for a in node.args
+                        if isinstance(a, ast.Constant) and isinstance(a.value, str)
+                    ]
+            found += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}" for n in names if _blocked(n)]
+    assert not found, found
+
+
+_SCRIPT = textwrap.dedent(
+    """
+    import glob, os, sys
+
+
+    class _Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu"):
+                raise ImportError("the port must not import " + name)
+            return None
+
+
+    sys.meta_path.insert(0, _Refuse())
+    out, ref_atlas = sys.argv[1], sys.argv[2]
+
+    from orbslam3_tpu_torch import (
+        FusedKernels, Pinhole, PyramidParams, rgbd_sequence, stereo_sequence,
+    )
+    from orbslam3_tpu_torch.slam import matchers
+    from orbslam3_tpu_torch.slam.system import System
+    from orbslam3_tpu_torch.utils.benchmark import Benchmark, device_trace, trace_range
+
+    devices = []
+    real = matchers.search_by_projection_cands_device
+
+
+    def counted(*a, **kw):
+        devices.append(str(kw["device"]))
+        return real(*a, **kw)
+
+
+    matchers.search_by_projection_cands_device = counted
+    matchers.DEVICE_MATCH_MIN = 1  # every local-map search takes the device matcher
+    cam = Pinhole([350.0, 350.0, 256.0, 192.0])
+    sysm = System(cam, 42.0, PyramidParams(n_features=900), device="cpu")
+    frames = stereo_sequence(3, cam, 0.12, 384, 512, seed=1)
+    with device_trace(os.path.join(out, "trace")):
+        with trace_range("isolation.stereo", sysm.device):
+            poses = [sysm.track_stereo(l, r, timestamp=k / 20.0) for k, (l, r, _) in enumerate(frames)]
+    assert all(p is not None for p in poses), poses
+    assert devices and set(devices) == {"cpu"}, devices
+    assert glob.glob(os.path.join(out, "trace", "*.json")), os.listdir(out)
+    assert len(Benchmark.the().records["isolation.stereo"]) == 1
+
+    for saver in ("save_trajectory_tum", "save_trajectory_kitti", "save_trajectory_euroc",
+                  "save_keyframe_trajectory_tum", "save_keyframe_trajectory_euroc"):
+        path = os.path.join(out, saver + ".txt")
+        getattr(sysm, saver)(path)
+        assert os.path.getsize(path) > 0, saver
+    atlas = os.path.join(out, "port.atlas")
+    sysm.save_atlas(atlas)
+    stats = sysm.map_stats()
+    sysm.shutdown()
+    for path, want in ((atlas, stats), (ref_atlas, None)):
+        other = System(cam, 42.0, PyramidParams(n_features=900), device="cpu")
+        other.load_atlas(path)
+        got = other.map_stats()
+        assert got["n_keyframes"] > 0 and (want is None or got == want), (path, got, want)
+        kf = other.atlas.get_current_map().get_all_keyframes()[0]
+        assert type(kf).__module__ == "orbslam3_tpu_torch.slam.keyframe"
+
+    small = Pinhole([350.0, 350.0, 160.0, 120.0])
+    params = PyramidParams(n_features=500)
+    fused = FusedKernels(True, True, True)
+    mono = System(small, 0.0, params, sensor=System.MONOCULAR, device="cpu", fused=fused)
+    for k, (l, _, _) in enumerate(stereo_sequence(2, small, 0.12, 240, 320, seed=1)):
+        mono.track_monocular(l, timestamp=k / 20.0)
+    mono.shutdown()
+    rgbd = System(small, 28.0, params, sensor=System.RGBD, device="cpu")
+    for k, (img, depth, _) in enumerate(rgbd_sequence(2, small, 240, 320, seed=2)):
+        rgbd.track_rgbd(img, depth, timestamp=k / 20.0)
+    rgbd.shutdown()
+
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu"))
+    assert not leaked, leaked
+    print("ISOLATED_OK")
+    """
+)
+
+
+def _reference_atlas(path: str) -> None:
+    """An atlas saved by the reference System, tracked from the port's
+    stereo features (so no JAX program is compiled here)."""
+    from orbslam3_tpu.cameras.models import Pinhole as RefPinhole
+    from orbslam3_tpu.oracle.orb_cpu import PyramidParams as RefParams
+    from orbslam3_tpu.slam.system import System as RefSystem
+    from orbslam3_tpu_torch import Pinhole, PyramidParams, stereo_sequence
+    from orbslam3_tpu_torch.slam.system import System
+
+    cam = Pinhole([350.0, 350.0, 256.0, 192.0])
+    port = System(cam, 42.0, PyramidParams(n_features=900), device="cpu")
+    ref = RefSystem(RefPinhole([350.0, 350.0, 256.0, 192.0]), 42.0, RefParams(n_features=900))
+    for k, (l, r, _) in enumerate(stereo_sequence(2, cam, 0.12, 384, 512, seed=1)):
+        ref.track_stereo_features(port._extract_stereo(l, r), k / 20.0, (0, 0, 512, 384))
+    assert ref.map_stats()["n_keyframes"] > 0
+    ref.save_atlas(path)
+    ref.shutdown()
+    port.shutdown()
+
+
+def test_port_runs_with_jax_and_the_reference_refused(tmp_path):
+    ref_atlas = str(tmp_path / "reference.atlas")
+    _reference_atlas(ref_atlas)
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT, str(tmp_path), ref_atlas],
+        capture_output=True, text=True, cwd=REPO, timeout=300,
+        env=dict(os.environ, PYTHONPATH=REPO),
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "ISOLATED_OK" in proc.stdout
+
+
+def test_blocked_name_rule():
+    assert _blocked("jax.numpy") and _blocked("orbslam3_tpu.slam.system") and _blocked("orbslam3_tpu")
+    assert not _blocked("orbslam3_tpu_torch.slam") and not _blocked("numpy")

@@ -10,7 +10,7 @@ frames at 752x480 on the card."""
 
 import pytest
 
-from orbslam3_tpu.slam.tracking import TrackingState
+from orbslam3_tpu_torch.slam.tracking import TrackingState
 from orbslam3_tpu_torch import FusedKernels, Pinhole, PyramidParams, ate_rmse, stereo_sequence
 from orbslam3_tpu_torch.ops import extractor as tex
 from orbslam3_tpu_torch.slam.system import System

@@ -8,7 +8,7 @@ case: uint16 TUM-style depth gives the depths of float metres."""
 import numpy as np
 import pytest
 
-from orbslam3_tpu.slam.tracking import TrackingState
+from orbslam3_tpu_torch.slam.tracking import TrackingState
 from orbslam3_tpu_torch import FusedKernels, Pinhole, PyramidParams, ate_rmse, rgbd_sequence
 from orbslam3_tpu_torch.slam.system import System
 

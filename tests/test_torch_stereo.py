@@ -16,12 +16,14 @@ from orbslam3_tpu.cameras.models import Pinhole
 from orbslam3_tpu.frontend import stereo_frame as jsf
 from orbslam3_tpu.oracle.orb_cpu import PyramidParams
 from orbslam3_tpu.utils.synth import stereo_sequence
+from orbslam3_tpu_torch import PyramidParams as TPyramidParams
 from orbslam3_tpu_torch.frontend import stereo_frame as tsf
 
 H, W = 240, 320
 FX = 300.0
 MBF = FX * 0.12
 PARAMS = PyramidParams(n_features=500)
+TPARAMS = TPyramidParams(n_features=500)  # the port's own class
 
 
 @pytest.fixture(scope="module")
@@ -29,7 +31,7 @@ def packed():
     frames = stereo_sequence(1, Pinhole([FX, FX, W / 2, H / 2]), 0.12, H, W, seed=1)
     pair = np.stack(frames[0][:2])
     want = np.asarray(jsf.extract_and_match_stereo_packed(pair, PARAMS, MBF, FX))
-    got = tsf.extract_and_match_stereo_packed(torch.from_numpy(pair), PARAMS, MBF, FX)
+    got = tsf.extract_and_match_stereo_packed(torch.from_numpy(pair), TPARAMS, MBF, FX)
     return pair, want, got.numpy()
 
 
@@ -73,13 +75,13 @@ def test_extract_from_pyramids_matches_packed_block(packed):
     from orbslam3_tpu_torch.ops.pyramid import build_pyramid
 
     pair, _, got = packed
-    tables = tsf.front_end(PARAMS, (H, W), MBF, FX, "cpu")
-    pyrs = [build_pyramid(torch.from_numpy(pair[i]), PARAMS) for i in range(2)]
-    det = [ex.detection_crops(p, PARAMS) for p in pyrs]
+    tables = tsf.front_end(TPARAMS, (H, W), MBF, FX, "cpu")
+    pyrs = [build_pyramid(torch.from_numpy(pair[i]), TPARAMS) for i in range(2)]
+    det = [ex.detection_crops(p, TPARAMS) for p in pyrs]
     maps = detect_two_threshold_multi(det[0][1] + det[1][1], 20, 7)
     n = len(det[0][0])
     left, _ = ex.extract_from_pyramids(
-        pyrs, PARAMS, [dict(zip(det[0][0], maps[:n])), dict(zip(det[1][0], maps[n:]))], tables
+        pyrs, TPARAMS, [dict(zip(det[0][0], maps[:n])), dict(zip(det[1][0], maps[n:]))], tables
     )
     np.testing.assert_array_equal(left.xy.numpy(), got[:, 0:2])
     np.testing.assert_array_equal(left.angle.numpy(), got[:, 3])
@@ -88,4 +90,4 @@ def test_extract_from_pyramids_matches_packed_block(packed):
 
 def test_non_flat_geometry_raises():
     with pytest.raises(NotImplementedError, match="A10"):
-        tsf.StereoFrontEnd.from_reference(PyramidParams(n_features=50), (64, 80))
+        tsf.StereoFrontEnd.from_reference(TPyramidParams(n_features=50), (64, 80))

@@ -1,9 +1,10 @@
 """The port's System tracks a synthetic stereo sequence on the CPU.
 
 Held to the bar of tests/test_slam_e2e.py: every frame tracked, ATE RMSE
-under 1 cm.  A subprocess run of the stereo, mono and RGB-D entry points
-shows that the port never imports JAX (this process cannot:
-tests/conftest.py imports it)."""
+under 1 cm.  A subprocess run of the stereo, mono and RGB-D entry points,
+with `jax` and `orbslam3_tpu` refused on `sys.meta_path`, shows that the
+port imports neither (this process cannot: tests/conftest.py imports
+them)."""
 
 import os
 import subprocess
@@ -13,7 +14,7 @@ import textwrap
 import numpy as np
 import pytest
 
-from orbslam3_tpu.slam.tracking import TrackingState
+from orbslam3_tpu_torch.slam.tracking import TrackingState
 from orbslam3_tpu_torch import Pinhole, PyramidParams, ate_rmse, stereo_sequence
 from orbslam3_tpu_torch.slam.system import System
 
@@ -83,6 +84,16 @@ def test_port_never_imports_jax():
     script = textwrap.dedent(
         """
         import sys
+
+
+        class _Refuse:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu"):
+                    raise ImportError("the port must not import " + name)
+                return None
+
+
+        sys.meta_path.insert(0, _Refuse())
         from orbslam3_tpu_torch import (
             FusedKernels, Pinhole, PyramidParams, rgbd_sequence, stereo_sequence,
         )
@@ -106,7 +117,8 @@ def test_port_never_imports_jax():
         for k, (img, depth, _) in enumerate(rgbd_sequence(2, cam, 240, 320, seed=2)):
             rgbd.track_rgbd(img, depth, timestamp=k / 20.0)
         rgbd.shutdown()
-        assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "orbslam3_tpu"))
+        assert not leaked, leaked
         print("NO_JAX_OK")
         """
     )
