@@ -8,7 +8,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
   3. each kernel against its plain PyTorch twin on the card, bit-exact, at
      the shapes of the main path (752x480 stereo, 8 levels, 1000 features),
      with both times from CUDA events (per call, and as device time over
-     the replay of a CUDA graph of 20 calls);
+     the replay of a CUDA graph of 20 calls); B1 also on an odd 97x211
+     image and on the images that take the FAST score to the ends of its
+     range (orbslam3_tpu_torch/tools/score_extremes.py), odd widths that
+     leave a partial 4-pixel group among them;
   4. the stereo tracking path through its entry points: System.track_stereo
      over a 30-frame synthetic sequence, save_trajectory_tum, shutdown —
      every frame tracked, ATE RMSE under 1 cm, one B1 and four B2 launches
@@ -20,7 +23,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
   7. the fused kernels B3, B4 and B5 against their plain twins on the card,
      bit-exact, at the shapes of the mono / RGB-D path (detection
      composites of one and two cameras, 1000 / 2000 / 5000 orientation
-     windows, 1000 / 5000 BRIEF samplings), with device times;
+     windows, 1000 / 5000 BRIEF samplings), with device times; B3 also at
+     thresholds the path never uses (min_th <= 0, ini_th > 254) on the
+     extremes' images and the mono composite;
   8. System.track_monocular over every second frame of the sequence under
      FusedKernels(True, True, True) (the 5x init extractor takes 5000
      features): tracking OK, >= 6 poses, Sim3 ATE under 5 cm, one B3, B4
@@ -186,6 +191,7 @@ def main() -> int:
     from orbslam3_tpu_torch.frontend import stereo_frame as sf
     from orbslam3_tpu_torch.ops import extractor as ex
     from orbslam3_tpu_torch.ops import fast, pyramid, window_gather as wg
+    from orbslam3_tpu_torch.tools import bench_score_kernels as bsk
     from orbslam3_tpu_torch.slam.system import (
         FRONT_END_STREAM_TAG,
         MONO_STREAM_TAG,
@@ -252,7 +258,14 @@ def main() -> int:
     odd = torch.randint(0, 256, (97, 211), dtype=torch.uint8,
                         generator=torch.Generator().manual_seed(SEED)).to(dev)
     err_odd, _, _ = b1_case("odd size, frame test", odd, None)
-    report["fast_score"]["max_abs_err"] = max(err, err_odd)
+    # the score's extremes, with the seam mask and without; odd widths
+    # leave a partial 4-pixel group
+    errs = bsk.b1_extreme_errs(dev)
+    bad = {k: e for k, e in errs.items() if e != 0}
+    require(not bad, f"B1 kernel != twin at the score's extremes: {bad}")
+    phase(f"3 B1 at {len(errs)} extreme cases (tools/score_extremes.py): bit-exact")
+    err_ext = max(errs.values())
+    report["fast_score"]["max_abs_err"] = max(err, err_odd, err_ext)
 
     comps = ex.build_merged_composites(pyrs, fe)
     img2d = comps.bordered
@@ -413,10 +426,17 @@ def main() -> int:
             lambda: fast.detect_fused(img, m, params.ini_th_fast, params.min_th_fast),
             lambda: fast.detect_fused_plain(img, m, params.ini_th_fast, params.min_th_fast),
         ))
+    # thresholds the path never uses: min_th <= 0 keeps zero and negative
+    # scores in the int16 map, ini_th > 254 sends every tile to its retry
+    errs = bsk.b3_extreme_errs(dev, {"mono composite": (mono_comp, fe_mono.det_mask)})
+    bad = {k: e for k, e in errs.items() if e != 0}
+    require(not bad, f"B3 kernel != twin at extreme thresholds: {bad}")
+    phase(f"7 B3 at {len(errs)} extreme threshold cases (min_th <= 0, ini_th > 254): bit-exact")
+    err_ext = max(errs.values())
     # the report's times are those of the mono composite, the path's shape
     n_px = mono_comp.numel()
     bound, bound_by = bound_ms(6 * n_px, B3_OPS_PER_PX * n_px, INT16X2_OPS_PER_S)
-    report["detect_fused"] = dict(max_abs_err=max(e for e, _, _ in b3), ms=b3[0][1],
+    report["detect_fused"] = dict(max_abs_err=max(err_ext, *(e for e, _, _ in b3)), ms=b3[0][1],
                                   plain_ms=b3[0][2], bound_ms=bound, bound_by=bound_by,
                                   library_ms=None)
     mono_comps = ex.build_merged_composites([mono_pyr], fe_mono)

@@ -37,13 +37,14 @@
 //
 // Bound on the H100: 1 B read and 4 B written per pixel, ~7.8 MB for the
 // 2112x736 harness image (~2.3 us at 3.35 TB/s).  The function needs at
-// least 165 two-input integer ops per pixel (the van Herk count,
+// least 118 two-input integer ops per pixel (van Herk on the raw ring
+// values with the differences folded out of the min/max,
 // utils/device_time.FAST_SCORE_OPS_PER_PX), all of which fit 16-bit lanes:
-// ~3.8 us at 66.9 Tops/s (132 SMs x 64 INT32 lanes x 1.98 GHz, two ops per
+// ~2.7 us at 66.9 Tops/s (132 SMs x 64 INT32 lanes x 1.98 GHz, two ops per
 // three-input VIMNMX3 / IADD3, two lanes per packed register).  So the
 // integer issue rate bounds every variant; log-step (192 ops/px), pairs
-// (203) and int32 chains (half the lane rate) spend more than the function
-// needs.
+// (203), the 16 ring differences every variant forms and int32 chains
+// (half the lane rate) spend more than the function needs.
 
 #include <cstdint>
 #include <cuda_runtime.h>

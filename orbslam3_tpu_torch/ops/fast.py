@@ -212,7 +212,9 @@ def detect_fused(
         raise ValueError(f"detect_fused: unsupported device {comp.device}")
     comp = comp.contiguous()
     mask = mask.contiguous()
-    sel = torch.empty((h, w), dtype=torch.int32, device=comp.device)
+    # the tile-selected map: scores lie in [-128, 254], so int16 is exact
+    # for every ini_th and min_th
+    sel = torch.empty((h, w), dtype=torch.int16, device=comp.device)
     out = torch.empty((h, w), dtype=torch.int32, device=comp.device)
     err = _build.kernels().detect_fused(
         comp.data_ptr(), mask.data_ptr(), sel.data_ptr(), out.data_ptr(), h, w,

@@ -22,17 +22,22 @@ import torch
 # VIMNMX3).  Operations are counted as two-input integer operations.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 2 * 132 * 64 * 1.98e9
-# signed 16-bit lanes packed two to a register (__vsub2 / __vmins2 /
-# __vmaxs2): two operations per lane op
+# 16-bit lanes packed two to a register (__vsub2, __vmins2 / __vmaxs2,
+# __vminu2 / __vmaxu2): two operations per lane op
 INT16X2_OPS_PER_S = 2 * INT32_OPS_PER_S
 
 # The least two-input integer operations per pixel of the FAST-9/16 score
-# minus 1, whichever kernel computes it (B1, B3, T1-T4): the 16 ring
-# differences; per polarity a van Herk window-9 min over the circular ring
-# (58) and the max over its 16 windows (15); the fold of the two
-# polarities, one negation and the -1.  Differences lie in [-255, 255], so
-# every operation fits a 16-bit lane: count them at INT16X2_OPS_PER_S.
-FAST_SCORE_OPS_PER_PX = 16 + 2 * (58 + 15) + 3
+# minus 1, whichever kernel computes it (B1, B3, T1-T4).  No ring
+# difference is formed: min over an arc of (ring - c) is the arc's min of
+# ring, minus c, so score = max(A - c, c - B) - 1 with A the max over the 16
+# circular 9-arcs of the arc's min of the raw ring values and B the min
+# over them of the arc's max.  Per polarity, van Herk over two blocks of 8
+# ring values: 7 prefix and 6 suffix ops a block (the whole block is the
+# last prefix and the first suffix), 2 x 13; one op per window, 16; 15 over
+# the windows: 57.  The fold: A - c, c - B, their max and the -1, 4.  Ring
+# values and the fold's terms fit 16-bit lanes: count them at
+# INT16X2_OPS_PER_S.
+FAST_SCORE_OPS_PER_PX = 2 * (2 * (7 + 6) + 16 + 15) + 4
 
 REPS = 30
 PROFILE_TRIES = 6

@@ -13,6 +13,7 @@ import torch
 
 from orbslam3_tpu.ops import fast as jf
 from orbslam3_tpu_torch.ops import fast as tf
+from orbslam3_tpu_torch.tools import score_extremes
 
 ODD_SIZES = ((65, 130), (96, 746), (57, 57))
 
@@ -106,8 +107,11 @@ def test_nms3_matches_jax():
 def test_kernel_matches_twin_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check on the H100")
-    for h, w in ODD_SIZES:
-        img = torch.from_numpy(_img(h, w)).cuda()
-        got = tf.raw_score_map(img)
-        torch.cuda.synchronize()
-        assert torch.equal(got, tf.raw_score_map_plain(img))
+    images = [_img(h, w) for h, w in ODD_SIZES] + list(score_extremes.score_images().values())
+    for img in images:
+        for mask in (None, score_extremes.seam_mask(*img.shape)):
+            t = torch.from_numpy(img).cuda()
+            m = None if mask is None else torch.from_numpy(mask).cuda()
+            got = tf.raw_score_map(t, m)
+            torch.cuda.synchronize()
+            assert torch.equal(got, tf.raw_score_map_plain(t, m))

@@ -158,7 +158,7 @@ def test_harness_check_pass_and_bound_on_cpu():
     """The port's A/B harness on a CPU image: its check pass runs every case
     of the four TPU harnesses through the wrappers (the plain versions
     here, so no launch); the bound is the function's, the same for every
-    case: 165 ops/px in 16-bit lanes at 2112x736."""
+    case: 118 ops/px in 16-bit lanes at 2112x736."""
     from orbslam3_tpu_torch.tools import bench_fast_variants as bfv
     from orbslam3_tpu_torch.utils import device_time as dt
 
@@ -167,11 +167,11 @@ def test_harness_check_pass_and_bound_on_cpu():
     assert len(results) == sum(map(len, bfv.CASES.values()))
     assert all(r["max_abs_err"] == 0 for r in results)
     assert {fn: w.launches for fn, w in WRAPPER.items()} == {fn: 0 for fn in WRAPPER}
-    assert dt.FAST_SCORE_OPS_PER_PX == 165
+    assert dt.FAST_SCORE_OPS_PER_PX == 118
     n = 2112 * 736
     ms, bound_by = bfv.score_bound_ms((2112, 736))
     assert bound_by == "operations"
-    assert ms == pytest.approx(n * 165 / dt.INT16X2_OPS_PER_S * 1e3, rel=1e-12)
+    assert ms == pytest.approx(n * 118 / dt.INT16X2_OPS_PER_S * 1e3, rel=1e-12)
 
 
 @pytest.mark.cuda

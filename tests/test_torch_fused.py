@@ -16,6 +16,7 @@ from orbslam3_tpu.ops import fast as jf
 from orbslam3_tpu.ops import window_gather as jwg
 from orbslam3_tpu.oracle.orb_cpu import ic_moment_weights
 from orbslam3_tpu_torch.ops import fast as tf
+from orbslam3_tpu_torch.tools import score_extremes
 from orbslam3_tpu_torch.ops import window_gather as twg
 
 
@@ -52,6 +53,13 @@ B3_CASES = {
         _rect_mask(160, 224, [(0, 0, 96, 224), (96, 0, 64, 96), (96, 96, 32, 64)]), 20, 7,
     ),
     "retry_tiles": (_retry_comp(), _rect_mask(64, 256, [(0, 0, 64, 256)]), 60, 7),
+    # thresholds at and beyond the ends of the score's range: min_th <= 0
+    # keeps zero and negative scores (B3's int16 scratch), ini_th > 254
+    # sends every tile to its retry
+    **{
+        f"extreme_{kind}_{ini_th}_{min_th}": (*score_extremes.b3_case(kind), ini_th, min_th)
+        for kind, ini_th, min_th in score_extremes.B3_THRESHOLDS
+    },
 }
 
 
