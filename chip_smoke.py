@@ -11,10 +11,19 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      the replay of a CUDA graph of 20 calls); B1 also on an odd 97x211
      image and on the images that take the FAST score to the ends of its
      range (orbslam3_tpu_torch/tools/score_extremes.py), odd widths that
-     leave a partial 4-pixel group among them;
+     leave a partial 4-pixel group among them; B2 as a stereo frame
+     launches it (two launches of two jobs each: the orientation + BRIEF
+     windows, the left + right SAD strips) and each of the four shapes
+     alone, then at the edge cases of
+     orbslam3_tpu_torch/tools/bench_window_kernels.py (an image's last byte
+     with h*w % 4 != 0, views 1-3 bytes past an aligned base, K = 1 and K
+     not a multiple of a block's windows, windows under 4 columns, 48x128
+     and larger windows, two jobs of different shapes in one launch, two
+     jobs whose grids differ by 2^20 blocks); and the launch floor, one
+     in-place add on one element in the same CUDA-graph harness;
   4. the stereo tracking path through its entry points: System.track_stereo
      over a 30-frame synthetic sequence, save_trajectory_tum, shutdown —
-     every frame tracked, ATE RMSE under 1 cm, one B1 and four B2 launches
+     every frame tracked, ATE RMSE under 1 cm, one B1 and two B2 launches
      per frame, and no JAX in the process;
   5. the whole front-end on the card against the same code on the CPU;
   6. torch.profiler: the front-end's device-busy time per frame by device
@@ -25,7 +34,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      composites of one and two cameras, 1000 / 2000 / 5000 orientation
      windows, 1000 / 5000 BRIEF samplings), with device times; B3 also at
      thresholds the path never uses (min_th <= 0, ini_th > 254) on the
-     extremes' images and the mono composite;
+     extremes' images and the mono composite; B4 also at the window
+     kernels' edge cases (tools/bench_window_kernels.py), other window
+     shapes up to 48x128 among them;
   8. System.track_monocular over every second frame of the sequence under
      FusedKernels(True, True, True) (the 5x init extractor takes 5000
      features): tracking OK, >= 6 poses, Sim3 ATE under 5 cm, one B3, B4
@@ -54,8 +65,10 @@ Phase 2 also requires the port's native host library to build
 (`native.available()`).  Last, no module of JAX or of the JAX package may
 be loaded.  The line before last is the JSON kernel report (launches:
 phase 4's for B1 and B2, phases 8 and 9's for B3, B4 and B5, phase 12's
-check pass for T1-T4; bounds computed from this run's shapes), the last line the
-JSON result.  Imports nothing of JAX.
+check pass for T1-T4; bounds computed from this run's shapes and, for the
+window kernels B2, B4 and B5, from the distinct image bytes this run's
+windows cover or its picks read), the last line the JSON result.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -192,6 +205,7 @@ def main() -> int:
     from orbslam3_tpu_torch.ops import extractor as ex
     from orbslam3_tpu_torch.ops import fast, pyramid, window_gather as wg
     from orbslam3_tpu_torch.tools import bench_score_kernels as bsk
+    from orbslam3_tpu_torch.tools import bench_window_kernels as bwk
     from orbslam3_tpu_torch.slam.system import (
         FRONT_END_STREAM_TAG,
         MONO_STREAM_TAG,
@@ -268,41 +282,68 @@ def main() -> int:
     report["fast_score"]["max_abs_err"] = max(err, err_odd, err_ext)
 
     comps = ex.build_merged_composites(pyrs, fe)
-    img2d = comps.bordered
-    hc, wc = img2d.shape
-    rng = np.random.default_rng(SEED)
-    b2_err, b2_ms, b2_plain, b2_bytes, b2_lib = 0.0, 0.0, 0.0, 0, 0.0
-    for nr, nc, k in ((31, 31, 2000), (37, 37, 2000), (11, 11, 1000), (11, 21, 1000)):
-        r = rng.integers(0, hc - nr + 1, k).astype(np.int32)
-        c = rng.integers(0, wc - nc + 1, k).astype(np.int32)
-        r[:4] = [-9, hc, 3 * hc, 0]  # out-of-bounds starts: clamped in-kernel
-        c[:4] = [wc + 5, -1, 0, -10 * wc]
-        r, c = torch.from_numpy(r).to(dev), torch.from_numpy(c).to(dev)
-        got = wg.gather_windows(img2d, r, c, nr, nc)
-        want = wg.gather_windows_plain(img2d, r, c, nr, nc)
+    # the main path's B2 work of one stereo frame: two launches of two jobs
+    jobs = bwk.path_jobs({"bordered": comps.bordered, "sampling": comps.sampling})
+    b2_err = 0.0
+    for label, pair_jobs in jobs.items():
+        got = wg.gather_windows_many(pair_jobs)
+        want = [wg.gather_windows_plain(*job) for job in pair_jobs]
         torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        require(err == 0, f"B2 {nr}x{nc} K={k}: kernel != twin (max abs err {err})")
-        ms = cuda_ms(lambda: wg.gather_windows(img2d, r, c, nr, nc))
-        plain = cuda_ms(lambda: wg.gather_windows_plain(img2d, r, c, nr, nc))
-        kdev = device_ms(lambda: wg.gather_windows(img2d, r, c, nr, nc))
-        pdev = device_ms(lambda: wg.gather_windows_plain(img2d, r, c, nr, nc))
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        require(err == 0, f"B2 pair {label}: kernel != twin (max abs err {err})")
+        b2_err = max(b2_err, err)
+    frame_jobs = [job for pair_jobs in jobs.values() for job in pair_jobs]
+    # the least traffic: the image bytes the frame's windows cover (the
+    # bordered composite, read by both launches, once), the windows written
+    # and the starts read
+    b2_read, b2_lib = bwk.covered_bytes(frame_jobs), 0.0
+    phase(f"3 B2 a stereo frame's windows cover {b2_read} distinct image bytes of "
+          f"{sum(r.shape[0] * nr * nc for _, r, _, nr, nc in frame_jobs)} window bytes")
+    b2_bytes = b2_read
+    for img, r, c, nr, nc in frame_jobs:
+        k = r.shape[0]
+        hi, wi = img.shape
+        kdev = device_ms(lambda: wg.gather_windows(img, r, c, nr, nc))
+        pdev = device_ms(lambda: wg.gather_windows_plain(img, r, c, nr, nc))
         # the library call: one advanced-indexing gather, its indices made beforehand
-        rows = r.long().clamp(0, hc - nr)[:, None] + torch.arange(nr, device=dev)
-        cols = c.long().clamp(0, wc - nc)[:, None] + torch.arange(nc, device=dev)
+        rows = r.long().clamp(0, hi - nr)[:, None] + torch.arange(nr, device=dev)
+        cols = c.long().clamp(0, wi - nc)[:, None] + torch.arange(nc, device=dev)
         ri, ci = rows[:, :, None], cols[:, None, :]
-        lib = device_ms(lambda: img2d[ri, ci])
-        phase(f"3 B2 {nr}x{nc} K={k} on {hc}x{wc}: bit-exact, median per call (events) "
-              f"kernel {ms:.4f} ms, twin {plain:.4f} ms; device time kernel {kdev:.4f} ms, "
+        lib = device_ms(lambda: img[ri, ci])
+        phase(f"3 B2 {nr}x{nc} K={k} alone on {hi}x{wi}: device time kernel {kdev:.4f} ms, "
               f"twin {pdev:.4f} ms, advanced indexing {lib:.4f} ms")
-        b2_err, b2_ms, b2_plain = max(b2_err, err), b2_ms + kdev, b2_plain + pdev
-        b2_bytes += 2 * k * nr * nc + 8 * k  # windows read and written, starts read
+        b2_bytes += k * nr * nc + 8 * k
         b2_lib += lib
+
+    def b2_frame():
+        for pair_jobs in jobs.values():
+            wg.gather_windows_many(pair_jobs)
+
+    def b2_frame_plain():
+        for pair_jobs in jobs.values():
+            for job in pair_jobs:
+                wg.gather_windows_plain(*job)
+
+    ms, plain = cuda_ms(b2_frame), cuda_ms(b2_frame_plain)
+    kdev, pdev = device_ms(b2_frame), device_ms(b2_frame_plain)
+    phase(f"3 B2 a stereo frame's work (2 launches, {' and '.join(jobs)} pairs) on "
+          f"{tuple(comps.bordered.shape)}: bit-exact, median per frame (events) kernel {ms:.4f} ms, "
+          f"twin {plain:.4f} ms; device time kernel {kdev:.4f} ms, twin {pdev:.4f} ms")
+    errs = bwk.b2_edge_errs(dev)
+    bad = {k: e for k, e in errs.items() if e != 0}
+    require(not bad, f"B2 kernel != twin at edge cases: {bad}")
+    phase(f"3 B2 at {len(errs)} edge cases (tools/bench_window_kernels.py): bit-exact")
+    errs["grid mix"] = bwk.b2_grid_mix_err(dev)
+    require(errs["grid mix"] == 0, f"B2 kernel != twin at 48x23 + 1x24, K=2^20: {errs['grid mix']}")
+    phase("3 B2 at 48x23 + 1x24 windows, K=2^20, in one launch (grids 2^20 blocks apart): bit-exact")
+    floor = bwk.launch_floor_ms()
+    phase(f"3 launch floor: one in-place add on one element, device time {floor:.4f} ms per call")
     # the report's times are device times (CUDA graph replays); B2's is the
-    # four main-path launches of one frame together
+    # two main-path launches of one frame together
     bound, bound_by = bound_ms(b2_bytes)
-    report["gather_windows"] = dict(max_abs_err=b2_err, ms=b2_ms, plain_ms=b2_plain,
-                                    bound_ms=bound, bound_by=bound_by, library_ms=b2_lib)
+    report["gather_windows"] = dict(max_abs_err=max(b2_err, *errs.values()), ms=kdev,
+                                    plain_ms=pdev, bound_ms=bound, bound_by=bound_by,
+                                    library_ms=b2_lib)
 
     # phase 4 -------------------------------------------------------------
     sysm = System(camera, mbf, params, device="cuda")
@@ -339,10 +380,10 @@ def main() -> int:
     require(n_ok == N_FRAMES, f"frames not tracked: {[s.name for s in states]}")
     require(len(est) == N_FRAMES and n_saved == N_FRAMES, "missing poses")
     require(ate < 0.01, f"ATE RMSE {ate} m >= 1 cm")
-    require(launches == {"fast_score": N_FRAMES, "gather_windows": 4 * N_FRAMES,
+    require(launches == {"fast_score": N_FRAMES, "gather_windows": 2 * N_FRAMES,
                          "detect_fused": 0, "window_moments": 0, "sample_windows": 0,
                          **NO_T_LAUNCHES},
-            f"expected 1 B1 + 4 B2 launches per frame, got {launches}")
+            f"expected 1 B1 + 2 B2 launches per frame, got {launches}")
     require("jax" not in sys.modules, "the port imported JAX")
 
     # phase 5 -------------------------------------------------------------
@@ -442,6 +483,7 @@ def main() -> int:
     mono_comps = ex.build_merged_composites([mono_pyr], fe_mono)
     hm, wm = mono_comps.bordered.shape
     require((hm, wm) == (1762, 760), f"mono merged composite {hm}x{wm}")
+    rng = np.random.default_rng(SEED)
 
     def starts(k, n):
         r = rng.integers(0, hm - n + 1, k).astype(np.int32)
@@ -450,18 +492,25 @@ def main() -> int:
         c[:4] = [wm + 5, -1, 0, -10 * wm]
         return torch.from_numpy(r).to(dev), torch.from_numpy(c).to(dev)
 
-    b4 = {}
+    b4, b4_starts = {}, {}
     for k in (1000, 2000, 5000):
-        r, c = starts(k, 31)
+        r, c = b4_starts[k] = starts(k, 31)
         b4[k] = kernel_vs_twin(
             f"B4 31x31 moments K={k} on {hm}x{wm}",
             lambda: wg.window_moments(mono_comps.bordered, r, c, fe_mono.ic_weights, fused=True),
             lambda: wg.window_moments_plain(mono_comps.bordered, r, c, fe_mono.ic_weights),
         )
-    # K windows of 31x31 u8 and the two weight planes read, (K, 2) f32
-    # written; a multiply and an add per weight and pixel
-    bound, bound_by = bound_ms(1000 * (961 + 8 + 8) + 2 * 961 * 4, 1000 * 2 * 961 * 2)
-    report["window_moments"] = dict(max_abs_err=max(v[0] for v in b4.values()),
+    errs = bwk.b4_edge_errs(dev)
+    bad = {k: e for k, e in errs.items() if e != 0}
+    require(not bad, f"B4 kernel != twin at edge cases: {bad}")
+    phase(f"7 B4 at {len(errs)} edge cases (tools/bench_window_kernels.py): bit-exact")
+    # the image bytes the K=1000 windows cover, their starts and the two
+    # weight planes read, (K, 2) f32 written; a multiply and an add per
+    # weight and pixel
+    b4_read = bwk.covered_bytes([(mono_comps.bordered, *b4_starts[1000], 31, 31)])
+    phase(f"7 B4 K=1000: the windows cover {b4_read} distinct image bytes of {1000 * 961}")
+    bound, bound_by = bound_ms(b4_read + 1000 * (8 + 8) + 2 * 961 * 4, 1000 * 2 * 961 * 2)
+    report["window_moments"] = dict(max_abs_err=max(*(v[0] for v in b4.values()), *errs.values()),
                                      ms=b4[1000][1], plain_ms=b4[1000][2], bound_ms=bound,
                                      bound_by=bound_by, library_ms=None)
     b5 = {}
@@ -475,14 +524,16 @@ def main() -> int:
             lambda: wg.sample_windows_plain(mono_comps.sampling, r, c, ri, ci, 37, 37),
         )
         if k == 1000:  # the library call: one advanced-indexing pick
+            b5_read = bwk.picked_bytes(mono_comps.sampling, r, c, ri, ci, 37, 37)
             hs, ws = mono_comps.sampling.shape
             rr = r.long().clamp(0, hs - 37)[:, None] + ri.long()
             cc = c.long().clamp(0, ws - 37)[:, None] + ci.long()
             b5_lib = device_ms(lambda: mono_comps.sampling[rr, cc])
             phase(f"7 B5 K=1000 advanced indexing {b5_lib:.4f} ms")
-    # the 37x37 windows, both (K, 512) int32 index planes and the starts
-    # read, (K, 512) u8 written
-    bound, bound_by = bound_ms(1000 * (37 * 37 + 512 * 8 + 8 + 512))
+    # the image bytes the K=1000 picks read, both (K, 512) int32 index
+    # planes and the starts read, (K, 512) u8 written
+    phase(f"7 B5 K=1000: the picks read {b5_read} distinct image bytes")
+    bound, bound_by = bound_ms(b5_read + 1000 * (512 * 8 + 8 + 512))
     report["sample_windows"] = dict(max_abs_err=max(v[0] for v in b5.values()),
                                      ms=b5[1000][1], plain_ms=b5[1000][2], bound_ms=bound,
                                      bound_by=bound_by, library_ms=b5_lib)

@@ -45,8 +45,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # fast_score(img, mask, out, h, w, stream)
     "fast_score": [_P, _P, _P, _I, _I, _P],
-    # gather_windows(img, h, w, row0, col0, k, nr, nc, out, stream)
-    "gather_windows": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P],
+    # gather_windows(jobs, n_jobs, k, stream); jobs: n_jobs x int64
+    # (img, h, w, row0, col0, nr, nc, out)
+    "gather_windows": [_P, _I, _I, _P],
     # detect_fused(img, mask, sel_scratch, out, h, w, ini_th, min_th, stream)
     "detect_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # window_moments(img, h, w, row0, col0, k, nr, nc, weights, out, stream)

@@ -4,12 +4,13 @@ Counterpart of ``orbslam3_tpu/frontend/stereo_frame.py``.  One call runs
 the whole perception side of a stereo frame on the input's device: both
 pyramids, one FAST composite pass for both cameras (one B1 launch), one
 batched selection, orientation and rBRIEF over the camera-merged composite
-(two B2 launches), then the masked Hamming match with the 11-slide SAD
-subpixel refinement (two B2 launches) and the median-SAD filter.
+(one B2 launch gathers both stages' windows), then the masked Hamming
+match with the 11-slide SAD subpixel refinement (one B2 launch gathers the
+left and right strips) and the median-SAD filter: two B2 launches a frame.
 
 Under `FusedKernels` detection runs B3 instead of B1 and orientation and
-rBRIEF run B4 and B5 instead of their two B2 gathers; the SAD refinement
-keeps its two B2 launches.
+rBRIEF run B4 and B5 instead of their B2 windows; the SAD refinement keeps
+its B2 launch.
 
 `StereoFrontEnd` holds the constant tables of one image geometry as module
 buffers; `StereoFrontEnd.from_reference` builds them from the numpy
@@ -43,7 +44,7 @@ from orbslam3_tpu_torch.ops.extractor import (
 from orbslam3_tpu_torch.ops.fast import detect_two_threshold_multi
 from orbslam3_tpu_torch.ops.matching import BIG, TH_HIGH, TH_LOW, hamming_matrix
 from orbslam3_tpu_torch.ops.pyramid import build_pyramid
-from orbslam3_tpu_torch.ops.window_gather import gather_windows
+from orbslam3_tpu_torch.ops.window_gather import gather_windows_many
 
 SAD_W = 5
 SAD_L = 5
@@ -116,8 +117,10 @@ def stereo_match(
     cl_svl = clip(svl - SAD_W, lh - wl)
     cl_sul = clip(sul - SAD_W, lw - wl)
     cl_sur = clip(sur0 - SAD_L - SAD_W, lw - ww)
-    p_l = gather_windows(comp_l, row_off_l[oct_l] + cl_svl, col0_l[oct_l] + cl_sul, wl, wl)
-    p_r = gather_windows(comp_r, row_off_r[oct_l] + cl_svl, col0_r[oct_l] + cl_sur, wl, ww)
+    p_l, p_r = gather_windows_many([
+        (comp_l, row_off_l[oct_l] + cl_svl, col0_l[oct_l] + cl_sul, wl, wl),
+        (comp_r, row_off_r[oct_l] + cl_svl, col0_r[oct_l] + cl_sur, wl, ww),
+    ])
     p_l = p_l.to(torch.int32)
     p_r = p_r.to(torch.int32)
     # SAD of slide j: left window against right columns [j, j + 11); int32

@@ -3,11 +3,13 @@
 Counterpart of ``orbslam3_tpu/ops/brief.py``: rotate the 512 pattern points
 in f32 with the reference's expression order, round half to even
 (`torch.round`, as `jnp.rint`, C-h4), sample the 37x37 window around each
-keypoint (B2 gather + indexing, or the fused B5 kernel with `fused`),
-compare the 256 pairs and pack bits LSB-first per byte (even samples <
-odd samples).  Bit-exact given the same
-(cos, sin); pass `trig` to pin them, since platform trig may differ by ulps
-(C-h2).
+keypoint (indexing into B2 windows, or the fused B5 kernel with
+`fused`), compare the 256 pairs and pack bits LSB-first per byte (even
+samples < odd samples).  The windows may come gathered already
+(`brief_window_starts` gives their starts: they do not depend on the
+angles), so that one B2 launch serves orientation and rBRIEF.  Bit-exact
+given the same (cos, sin); pass `trig` to pin them, since platform trig
+may differ by ulps (C-h2).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from orbslam3_tpu_torch.ops.window_gather import sample_windows
 
 BRIEF_PAD = 19   # border width of the sampling buffer (reference EDGE_THRESHOLD)
 PATCH_HALF = 18  # max rounded rotated pattern offset
+BRIEF_WINDOW = 2 * PATCH_HALF + 1
 
 _FACTOR_PI = float(np.float32(math.pi / 180.0))
 
@@ -45,6 +48,14 @@ def brief_sampling_image(raw: torch.Tensor, blurred: torch.Tensor) -> torch.Tens
     return pad
 
 
+def brief_window_starts(xy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(row0, col0) in the sampling image of the BRIEF_WINDOW x BRIEF_WINDOW
+    windows around keypoints at xy (N, 2) f32 level coords (un-bordered)."""
+    cy = torch.round(xy[:, 1]).to(torch.int32) + BRIEF_PAD
+    cx = torch.round(xy[:, 0]).to(torch.int32) + BRIEF_PAD
+    return cy - PATCH_HALF, cx - PATCH_HALF
+
+
 def brief_descriptors(
     sampling_img: torch.Tensor,
     xy: torch.Tensor,
@@ -55,8 +66,10 @@ def brief_descriptors(
 ) -> torch.Tensor:
     """(N, 32) uint8 descriptors.
 
-    sampling_img: bordered composite from `brief_sampling_image`; xy: (N, 2)
-    f32 level coords (un-bordered); angles: (N,) degrees."""
+    sampling_img: bordered composite from `brief_sampling_image`, or
+    (without `fused`) the (N, 37, 37) windows at `brief_window_starts(xy)`
+    gathered already; xy: (N, 2) f32 level coords (un-bordered); angles:
+    (N,) degrees."""
     if pattern is None:
         pattern = brief_pattern(sampling_img.device)
     if trig is not None:
@@ -68,14 +81,12 @@ def brief_descriptors(
         b = torch.sin(ang)[:, None]
     px = pattern[0][None, :]
     py = pattern[1][None, :]
-    cy = torch.round(xy[:, 1]).to(torch.int32) + BRIEF_PAD
-    cx = torch.round(xy[:, 0]).to(torch.int32) + BRIEF_PAD
     r_off = torch.round(px * b + py * a).to(torch.int32)  # (N, 512) in [-18, 18]
     c_off = torch.round(px * a - py * b).to(torch.int32)
+    starts = brief_window_starts(xy) if sampling_img.dim() == 2 else (None, None)
     samples = sample_windows(
-        sampling_img, cy - PATCH_HALF, cx - PATCH_HALF,
-        r_off + PATCH_HALF, c_off + PATCH_HALF,
-        2 * PATCH_HALF + 1, 2 * PATCH_HALF + 1, fused=fused,
+        sampling_img, *starts, r_off + PATCH_HALF, c_off + PATCH_HALF,
+        BRIEF_WINDOW, BRIEF_WINDOW, fused=fused,
     )
     bits = (samples[:, 0::2] < samples[:, 1::2]).to(torch.int32).reshape(-1, 32, 8)
     shifts = torch.arange(8, dtype=torch.int32, device=bits.device)

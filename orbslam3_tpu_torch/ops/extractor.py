@@ -2,10 +2,10 @@
 
 Counterpart of ``orbslam3_tpu/ops/extractor.py``.  On the flat geometry
 (every level active at its full quota — the standard one) the cameras
-share one batched selection, one orientation gather and one descriptor
-gather over the camera-merged bordered composite, laid out exactly as the
-reference lays it out.  Other geometries take the reference's per-level
-`_extract_single`.
+share one batched selection and one B2 launch that gathers the orientation
+and descriptor windows over the camera-merged composites, laid out exactly
+as the reference lays them out.  Other geometries take the reference's
+per-level `_extract_single`.
 
 Constant tables (resize and blur taps, moment weights, BRIEF pattern,
 composite masks, per-slot metadata) come from a `tables` module holding
@@ -32,12 +32,14 @@ from orbslam3_tpu_torch.oracle.orb_cpu import (
 )
 from orbslam3_tpu_torch.ops.brief import (
     BRIEF_PAD,
+    BRIEF_WINDOW,
     brief_descriptors,
     brief_pattern_np,
     brief_sampling_image,
+    brief_window_starts,
 )
 from orbslam3_tpu_torch.ops.fast import detect_two_threshold_multi, detection_layout, shelf_pack
-from orbslam3_tpu_torch.ops.orientation import ic_angles
+from orbslam3_tpu_torch.ops.orientation import IC_WINDOW, ic_angles, ic_window_starts
 from orbslam3_tpu_torch.ops.pyramid import (
     ResizeTaps,
     build_pyramid,
@@ -46,14 +48,15 @@ from orbslam3_tpu_torch.ops.pyramid import (
     resize_taps_np,
 )
 from orbslam3_tpu_torch.ops.select import select_topk_grid_multi
+from orbslam3_tpu_torch.ops.window_gather import gather_windows_many
 
 
 class FusedKernels(NamedTuple):
     """The front-end's fused-kernel configuration: the port's explicit
     counterpart of the reference's ORBSLAM3_TPU_PALLAS_DETECT / _MOMENTS /
     _SAMPLE switches, off by default as there.  Off, detection runs B1 plus
-    tensor code and orientation / rBRIEF run over B2 windows; on, each runs
-    its fused kernel instead."""
+    tensor code and orientation / rBRIEF run over B2 windows, both gathered
+    in one B2 launch; on, each runs its fused kernel instead."""
 
     detect: bool = False   # B3: score, per-tile retry and NMS in one call
     moments: bool = False  # B4: the IC moments without a (K, 31, 31) window block
@@ -181,6 +184,31 @@ def slot_tables_np(params: PyramidParams, y0: tuple, x0: tuple, pad: int) -> dic
     )
 
 
+def _angles_and_descriptors(
+    raw: torch.Tensor, xy_orient: torch.Tensor, sampling: torch.Tensor, xy_brief: torch.Tensor,
+    tables, fused: FusedKernels,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """IC angles of the integer centres `xy_orient` in the raw image and
+    rBRIEF descriptors of the f32 `xy_brief` in the sampling image.  The
+    stages that run over B2 windows (those not under `fused`) get them from
+    one `gather_windows_many` launch: the window starts do not depend on
+    the angles."""
+    jobs = {}
+    if not fused.moments:
+        jobs["orient"] = (raw, *ic_window_starts(xy_orient), IC_WINDOW, IC_WINDOW)
+    if not fused.sample:
+        jobs["brief"] = (sampling, *brief_window_starts(xy_brief), BRIEF_WINDOW, BRIEF_WINDOW)
+    windows = dict(zip(jobs, gather_windows_many(jobs.values())))
+    angles = ic_angles(
+        windows.get("orient", raw), xy_orient, weights=tables.ic_weights, fused=fused.moments
+    )
+    desc = brief_descriptors(
+        windows.get("brief", sampling), xy_brief, angles, pattern=tables.brief_pattern,
+        fused=fused.sample,
+    )
+    return angles, desc
+
+
 def extract_from_pyramids(
     pyramids: list,
     params: PyramidParams,
@@ -225,18 +253,11 @@ def extract_from_pyramids(
         comps = build_merged_composites(pyramids, tables)
 
     xy_all = torch.cat(safe_cats)
-    # orientation reads RAW pixels of the bordered composite
-    angles_all = ic_angles(
-        comps.bordered, xy_all + tables.slot_off_orient, weights=tables.ic_weights,
-        fused=fused.moments,
-    )
-    # brief_descriptors adds BRIEF_PAD to both coords; the offsets subtract it
-    desc_all = brief_descriptors(
-        comps.sampling,
-        (xy_all + tables.slot_off_brief).to(torch.float32),
-        angles_all,
-        pattern=tables.brief_pattern,
-        fused=fused.sample,
+    # orientation reads RAW pixels of the bordered composite; BRIEF adds
+    # BRIEF_PAD to both coords, the offsets subtract it
+    angles_all, desc_all = _angles_and_descriptors(
+        comps.bordered, xy_all + tables.slot_off_orient,
+        comps.sampling, (xy_all + tables.slot_off_brief).to(torch.float32), tables, fused,
     )
 
     scale_vec = tables.slot_scale
@@ -282,9 +303,9 @@ def _extract_single(
 ) -> FrameFeatures:
     """The reference's per-level path, for geometries that are not flat
     (inactive levels, or levels smaller than their quota): one batched
-    selection with per-level quotas min(quota, crop area), then one
-    orientation gather over the vertically stacked raw levels and one
-    descriptor gather over the stacked per-level sampling images (each
+    selection with per-level quotas min(quota, crop area), then the
+    orientation windows of the vertically stacked raw levels and the
+    descriptor windows of the stacked per-level sampling images (each
     level blurred on its own with reflect-101, inside a 19-px reflect-101
     border).  Each level's block is padded to its static quota, invalid
     slots zeroed."""
@@ -318,13 +339,9 @@ def _extract_single(
             return torch.from_numpy(np.stack([np.zeros_like(row), row], axis=1)).to(dev)
 
         xy_all = torch.cat(safe_xys)
-        angles_all = ic_angles(
-            torch.cat(raw_rows), xy_all + offsets(y0_raw), weights=tables.ic_weights,
-            fused=fused.moments,
-        )
-        desc_all = brief_descriptors(
-            torch.cat(samp_rows), (xy_all + offsets(y0_samp)).to(torch.float32), angles_all,
-            pattern=tables.brief_pattern, fused=fused.sample,
+        angles_all, desc_all = _angles_and_descriptors(
+            torch.cat(raw_rows), xy_all + offsets(y0_raw),
+            torch.cat(samp_rows), (xy_all + offsets(y0_samp)).to(torch.float32), tables, fused,
         )
         starts = np.cumsum([0] + k_effs)
         for i, (level, (xy_c, resp, valid)) in enumerate(zip(sel_levels, selections)):

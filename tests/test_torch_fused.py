@@ -16,7 +16,7 @@ from orbslam3_tpu.ops import fast as jf
 from orbslam3_tpu.ops import window_gather as jwg
 from orbslam3_tpu.oracle.orb_cpu import ic_moment_weights
 from orbslam3_tpu_torch.ops import fast as tf
-from orbslam3_tpu_torch.tools import score_extremes
+from orbslam3_tpu_torch.tools import bench_window_kernels, score_extremes
 from orbslam3_tpu_torch.ops import window_gather as twg
 
 
@@ -205,3 +205,8 @@ def test_kernels_match_twins_on_card():
     got = twg.sample_windows(img, r, c, ridx, cidx, 37, 37, fused=True)
     torch.cuda.synchronize()
     assert torch.equal(got, twg.sample_windows_plain(img, r, c, ridx, cidx, 37, 37))
+    # B4's edge cases: an image's last byte with h*w % 4 != 0, views 1-3
+    # bytes past an aligned base, K = 1 and K not a multiple of 8, and the
+    # run-time instantiation's shapes up to 48x128
+    errs = bench_window_kernels.b4_edge_errs("cuda")
+    assert {k: e for k, e in errs.items() if e != 0} == {}
