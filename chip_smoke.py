@@ -29,18 +29,24 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
   6. torch.profiler: the front-end's device-busy time per frame by device
      op (full table in chiprun_out/chip_smoke_profile.txt), and the
      device-busy share of whole track_stereo frames;
-  7. the fused kernels B3, B4 and B5 against their plain twins on the card,
-     bit-exact, at the shapes of the mono / RGB-D path (detection
-     composites of one and two cameras, 1000 / 2000 / 5000 orientation
-     windows, 1000 / 5000 BRIEF samplings), with device times; B3 also at
-     thresholds the path never uses (min_th <= 0, ini_th > 254) on the
-     extremes' images and the mono composite; B4 also at the window
-     kernels' edge cases (tools/bench_window_kernels.py), other window
-     shapes up to 48x128 among them;
+  7. the fused kernels B3, B4 and both modes of B5 against their plain
+     twins on the card, bit-exact, at the shapes of the mono / RGB-D path
+     (detection composites of one and two cameras, 1000 / 2000 / 5000
+     orientation windows, 1000 / 5000 BRIEF samplings), with device times;
+     B3 also at thresholds the path never uses (min_th <= 0, ini_th > 254)
+     on the extremes' images and the mono composite; B4 and B5 also at the
+     window kernels' edge cases (tools/bench_window_kernels.py), other
+     window shapes up to 48x128 among them; B5's index mode (the TPU
+     kernel's function) at K = 1000 / 5000, its launches counted over this
+     check pass; B5's rBRIEF mode (the whole fused brief_descriptors) at
+     K = 1000 / 5000 with (cos, sin) pinned, bit-exact, and with the trig
+     in the kernel, the descriptors that differ from the twin's (torch.cos
+     / torch.sin) counted and printed;
   8. System.track_monocular over every second frame of the sequence under
      FusedKernels(True, True, True) (the 5x init extractor takes 5000
-     features): tracking OK, >= 6 poses, Sim3 ATE under 5 cm, one B3, B4
-     and B5 launch per frame and no B1 or B2 launch;
+     features): tracking OK, >= 6 poses, Sim3 ATE under 5 cm, one B3, one
+     B4 and one B5 rBRIEF launch per frame, and no B1, B2 or B5 index
+     launch;
   9. System.track_rgbd over a 30-frame synthetic RGB-D sequence under the
      same configuration: every frame tracked, ATE under 1 cm, the same
      launch counts;
@@ -53,9 +59,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      case of the four TPU harnesses on the 2112x736 harness image and the
      3264x736 stereo detection composite bit-exact against the plain
      versions, with the launches counted; every case again on an odd 97x211
-     image (partial tiles, the packed kernel's odd-width tail), bit-exact;
-     then the harness's timing pass (device time and bound per case) and
-     each function's default case against its plain version, both timed;
+     image (partial tiles, the packed kernel's odd-width tail), bit-exact,
+     the tiles whose u16 halo needs more than 48 KB of shared memory (T3
+     s48 c768 and s64 c384, T4 s48 c768) among them; then the harness's
+     timing pass (device time and bound per case) and each function's
+     default case against its plain version, both timed;
  13. the dense SearchByProjection matcher that tracking runs on the
      System's device at >= 30000 local-map candidates
      (ops/matching.search_by_projection_batch), at 30000 map points x 1000
@@ -64,8 +72,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 Phase 2 also requires the port's native host library to build
 (`native.available()`).  Last, no module of JAX or of the JAX package may
 be loaded.  The line before last is the JSON kernel report (launches:
-phase 4's for B1 and B2, phases 8 and 9's for B3, B4 and B5, phase 12's
-check pass for T1-T4; bounds computed from this run's shapes and, for the
+phase 4's for B1 and B2, phases 8 and 9's for B3, B4 and B5's rBRIEF mode,
+phase 7's check pass for B5's index mode and phase 12's for T1-T4, which
+no tracking path runs; bounds computed from this run's shapes and, for the
 window kernels B2, B4 and B5, from the distinct image bytes this run's
 windows cover or its picks read), the last line the JSON result.  Imports
 nothing of JAX.
@@ -85,6 +94,7 @@ import numpy as np
 import torch
 
 from orbslam3_tpu_torch.utils.device_time import (
+    F32_NO_FMA_OPS_PER_S,
     FAST_SCORE_OPS_PER_PX,
     INT16X2_OPS_PER_S,
     NO_TRACE,
@@ -109,6 +119,11 @@ B3_OPS_PER_PX = B1_OPS_PER_PX + 2 + 2 + 9
 MATCH_M, MATCH_K = 30000, 1000
 # the tracking paths launch none of the A/B variants T1-T4
 NO_T_LAUNCHES = {f"fast_variant_t{i}": 0 for i in range(1, 5)}
+# the least operations of one keypoint's rBRIEF descriptor: per pattern
+# point 4 multiplies, 2 adds and 2 roundings, then 256 compares; each
+# product and sum is rounded on its own (no FMA), so they count at
+# F32_NO_FMA_OPS_PER_S
+BRIEF_OPS_PER_KP = 512 * (4 + 2 + 2) + 256
 
 
 def phase(msg: str) -> None:
@@ -203,7 +218,7 @@ def main() -> int:
     from orbslam3_tpu_torch import _build
     from orbslam3_tpu_torch.frontend import stereo_frame as sf
     from orbslam3_tpu_torch.ops import extractor as ex
-    from orbslam3_tpu_torch.ops import fast, pyramid, window_gather as wg
+    from orbslam3_tpu_torch.ops import brief as tb, fast, pyramid, window_gather as wg
     from orbslam3_tpu_torch.tools import bench_score_kernels as bsk
     from orbslam3_tpu_torch.tools import bench_window_kernels as bwk
     from orbslam3_tpu_torch.slam.system import (
@@ -382,7 +397,7 @@ def main() -> int:
     require(ate < 0.01, f"ATE RMSE {ate} m >= 1 cm")
     require(launches == {"fast_score": N_FRAMES, "gather_windows": 2 * N_FRAMES,
                          "detect_fused": 0, "window_moments": 0, "sample_windows": 0,
-                         **NO_T_LAUNCHES},
+                         "brief_descriptors": 0, **NO_T_LAUNCHES},
             f"expected 1 B1 + 2 B2 launches per frame, got {launches}")
     require("jax" not in sys.modules, "the port imported JAX")
 
@@ -513,34 +528,88 @@ def main() -> int:
     report["window_moments"] = dict(max_abs_err=max(*(v[0] for v in b4.values()), *errs.values()),
                                      ms=b4[1000][1], plain_ms=b4[1000][2], bound_ms=bound,
                                      bound_by=bound_by, library_ms=None)
-    b5 = {}
+    # B5's index mode, the TPU kernel's function, which no tracking path
+    # runs since the rBRIEF mode: the kernels line reports the path's 0
+    # launches, and this check pass's count apart as `check_launches`
+    sampling = mono_comps.sampling
+    b5_in = {}
+    port.reset_kernel_launches()
     for k in (1000, 5000):
         r, c = starts(k, 37)
         ri = torch.from_numpy(rng.integers(0, 37, (k, 512)).astype(np.int32)).to(dev)
         ci = torch.from_numpy(rng.integers(0, 37, (k, 512)).astype(np.int32)).to(dev)
-        b5[k] = kernel_vs_twin(
-            f"B5 37x37 x 512 samples K={k} on {hm}x{wm}",
-            lambda: wg.sample_windows(mono_comps.sampling, r, c, ri, ci, 37, 37, fused=True),
-            lambda: wg.sample_windows_plain(mono_comps.sampling, r, c, ri, ci, 37, 37),
-        )
-        if k == 1000:  # the library call: one advanced-indexing pick
-            b5_read = bwk.picked_bytes(mono_comps.sampling, r, c, ri, ci, 37, 37)
-            hs, ws = mono_comps.sampling.shape
-            rr = r.long().clamp(0, hs - 37)[:, None] + ri.long()
-            cc = c.long().clamp(0, ws - 37)[:, None] + ci.long()
-            b5_lib = device_ms(lambda: mono_comps.sampling[rr, cc])
-            phase(f"7 B5 K=1000 advanced indexing {b5_lib:.4f} ms")
+        b5_in[k] = (sampling, r, c, ri, ci, 37, 37)
+        err = max_abs_err(wg.sample_windows(*b5_in[k], fused=True), wg.sample_windows_plain(*b5_in[k]))
+        require(err == 0, f"B5 index mode K={k}: kernel != twin (max abs err {err})")
+    errs = bwk.b5_edge_errs(dev)
+    bad = {k: e for k, e in errs.items() if e != 0}
+    require(not bad, f"B5 index mode != twin at edge cases: {bad}")
+    index_launches = port.kernel_launches()["sample_windows"]
+    phase(f"7 B5 index mode 37x37 x 512 at K=1000 / 5000 on {tuple(sampling.shape)} and at "
+          f"{len(errs)} edge cases (tools/bench_window_kernels.py): bit-exact, "
+          f"{index_launches} launches")
+    b5 = {k: kernel_vs_twin(f"B5 index mode K={k}", lambda x=x: wg.sample_windows(*x, fused=True),
+                            lambda x=x: wg.sample_windows_plain(*x))
+          for k, x in b5_in.items()}
+    _, r, c, ri, ci, _, _ = b5_in[1000]
+    # the library call: one advanced-indexing pick
+    hs, ws = sampling.shape
+    rr = r.long().clamp(0, hs - 37)[:, None] + ri.long()
+    cc = c.long().clamp(0, ws - 37)[:, None] + ci.long()
+    b5_lib = device_ms(lambda: sampling[rr, cc])
+    b5_read = bwk.picked_bytes(sampling, r, c, ri, ci, 37, 37)
+    phase(f"7 B5 index mode K=1000: advanced indexing {b5_lib:.4f} ms; the picks read "
+          f"{b5_read} distinct image bytes")
     # the image bytes the K=1000 picks read, both (K, 512) int32 index
     # planes and the starts read, (K, 512) u8 written
-    phase(f"7 B5 K=1000: the picks read {b5_read} distinct image bytes")
     bound, bound_by = bound_ms(b5_read + 1000 * (512 * 8 + 8 + 512))
-    report["sample_windows"] = dict(max_abs_err=max(v[0] for v in b5.values()),
+    report["sample_windows"] = dict(max_abs_err=max(*(v[0] for v in b5.values()), *errs.values()),
                                      ms=b5[1000][1], plain_ms=b5[1000][2], bound_ms=bound,
                                      bound_by=bound_by, library_ms=b5_lib)
+    # B5's rBRIEF mode: the whole fused brief_descriptors against its twin
+    pattern = fe_mono.brief_pattern
+    brief = {}
+    for k in (1000, 5000):
+        xy, ang, trig = bwk.brief_inputs(rng, hs, ws, k, dev)
+        brief[k] = kernel_vs_twin(
+            f"B5 rBRIEF mode K={k}, (cos, sin) pinned",
+            lambda: tb.brief_descriptors(sampling, xy, ang, trig, pattern, fused=True),
+            lambda: tb.brief_descriptors_plain(sampling, xy, ang, trig, pattern),
+        )
+        got = tb.brief_descriptors(sampling, xy, ang, None, pattern, fused=True)
+        want = tb.brief_descriptors_plain(sampling, xy, ang, None, pattern)
+        n_diff = int((got != want).any(1).sum())
+        kdev = device_ms(lambda: tb.brief_descriptors(sampling, xy, ang, None, pattern, fused=True))
+        pdev = device_ms(lambda: tb.brief_descriptors_plain(sampling, xy, ang, None, pattern))
+        phase(f"7 B5 rBRIEF mode K={k}, trig in the kernel (cosf / sinf) against the twin's "
+              f"torch.cos / torch.sin: {n_diff} of {k} descriptors differ; device time kernel "
+              f"{kdev:.4f} ms, twin {pdev:.4f} ms")
+        require(n_diff <= max(5, k // 100), f"B5 rBRIEF mode K={k}: {n_diff} descriptors differ")
+        if k == 1000:
+            brief_unpinned = (kdev, pdev, xy, ang)
+    errs = bwk.brief_edge_errs(dev)
+    bad = {k: e for k, e in errs.items() if e != 0}
+    require(not bad, f"B5 rBRIEF mode != default composition at edge cases: {bad}")
+    phase(f"7 B5 rBRIEF mode at {len(errs)} edge cases (tools/bench_window_kernels.py), "
+          f"(cos, sin) pinned: bit-exact")
+    # the report's times are the path's call: K=1000, trig in the kernel.
+    # Bytes: the distinct image bytes its picks read, xy and the angle read
+    # and 32 B written per keypoint, the pattern read once
+    kdev, pdev, xy, ang = brief_unpinned
+    ridx, cidx = tb.brief_indices(ang, None, pattern)
+    brief_read = bwk.picked_bytes(sampling, *tb.brief_window_starts(xy), ridx, cidx, 37, 37)
+    bound, bound_by = bound_ms(brief_read + 1000 * (8 + 4 + 32) + pattern.numel() * 4,
+                               1000 * BRIEF_OPS_PER_KP, F32_NO_FMA_OPS_PER_S)
+    phase(f"7 B5 rBRIEF mode K=1000: the picks read {brief_read} distinct image bytes; bound "
+          f"{bound:.6f} ms ({bound_by})")
+    report["brief_descriptors"] = dict(
+        max_abs_err=max(*(v[0] for v in brief.values()), *errs.values()), ms=kdev, plain_ms=pdev,
+        bound_ms=bound, bound_by=bound_by, library_ms=None)
 
     # phase 8: track_monocular under the fused configuration ---------------
     per_frame = {"fast_score": 0, "gather_windows": 0, "detect_fused": 1,
-                 "window_moments": 1, "sample_windows": 1, **NO_T_LAUNCHES}
+                 "window_moments": 1, "sample_windows": 0, "brief_descriptors": 1,
+                 **NO_T_LAUNCHES}
     mono = System(camera, 0.0, params, sensor=System.MONOCULAR, sequential=True,
                   max_frames=8, device="cuda", fused=fused)
     mono_steps = [
@@ -556,7 +625,8 @@ def main() -> int:
     require(len(res["est"]) >= 6, "fewer than 6 mono poses")
     require(mono_ate < 0.05, f"mono Sim3 ATE {mono_ate} m >= 5 cm")
     require(res["launches"] == {k: v * n for k, v in per_frame.items()},
-            f"expected 1 B3 + 1 B4 + 1 B5 and no B1/B2 launch per frame, got {res['launches']}")
+            f"expected 1 B3 + 1 B4 + 1 B5 rBRIEF and no B1/B2/B5 index launch per frame, "
+            f"got {res['launches']}")
     fused_launches = dict(res["launches"])
 
     # phase 9: track_rgbd under the fused configuration --------------------
@@ -575,7 +645,8 @@ def main() -> int:
     require(n_ok == N_FRAMES and len(res["est"]) == N_FRAMES, "RGB-D frames not tracked")
     require(rgbd_ate < 0.01, f"RGB-D ATE RMSE {rgbd_ate} m >= 1 cm")
     require(res["launches"] == {k: v * N_FRAMES for k, v in per_frame.items()},
-            f"expected 1 B3 + 1 B4 + 1 B5 and no B1/B2 launch per frame, got {res['launches']}")
+            f"expected 1 B3 + 1 B4 + 1 B5 rBRIEF and no B1/B2/B5 index launch per frame, "
+            f"got {res['launches']}")
     for k, v in res["launches"].items():
         fused_launches[k] += v
     require("jax" not in sys.modules, "the port imported JAX")
@@ -626,6 +697,13 @@ def main() -> int:
     odd_results = bfv.check({"odd": odd}, log=lambda line: phase("12 " + line))
     require(all(r["max_abs_err"] == 0 for r in odd_results),
             "a T1-T4 case differs from its plain version on the odd 97x211 image")
+    big = sorted({f"{r['function']} {r['case']} ({fv.halo_bytes(v.rows, v.cols)} B)"
+                  for r in results + odd_results
+                  for v in [bfv.FUNCTIONS[r["function"]][2](*r["args"])]
+                  if fv.halo_bytes(v.rows, v.cols) > 48 * 1024})
+    phase(f"12 cases whose halo needs more than 48 KB of shared memory, bit-exact on all three "
+          f"images: {'; '.join(big)}")
+    require(len(big) >= 3, f"expected the T3/T4 tiles above 48 KB among the cases, got {big}")
     bfv.time_cases(images, results, log=lambda line: phase("12 " + line))
     defaults = {  # each TPU function's default case
         "t1": (False, None, None), "t2": (32,), "t3": (48, 384, "twopass"),
@@ -689,7 +767,12 @@ def main() -> int:
         dict(name="sample_windows", route="cuda",
              source="orbslam3_tpu_torch/csrc/sample_windows.cu",
              replaces="orbslam3_tpu/ops/window_gather.py:256",
-             launches=fused_launches["sample_windows"], **report["sample_windows"]),
+             launches=fused_launches["sample_windows"], check_launches=index_launches,
+             **report["sample_windows"]),
+        dict(name="brief_descriptors", route="cuda",
+             source="orbslam3_tpu_torch/csrc/sample_windows.cu",
+             replaces="orbslam3_tpu/ops/window_gather.py:256",
+             launches=fused_launches["brief_descriptors"], **report["brief_descriptors"]),
     ] + [
         dict(name=f"fast_variant_{fn}", route="cuda",
              source="orbslam3_tpu_torch/csrc/fast_variants.cu", replaces=replaces,

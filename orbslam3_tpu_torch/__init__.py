@@ -23,13 +23,14 @@ from orbslam3_tpu_torch.utils.synth import ate_rmse, rgbd_sequence, stereo_seque
 def _wrappers() -> dict:
     """The counted wrapper of each hand-written kernel, by kernel name."""
     from orbslam3_tpu_torch.ops import fast_variants as fv
+    from orbslam3_tpu_torch.ops.brief import brief_descriptors
     from orbslam3_tpu_torch.ops.fast import detect_fused, raw_score_map
     from orbslam3_tpu_torch.ops.window_gather import gather_windows, sample_windows, window_moments
 
     return {
         "fast_score": raw_score_map, "gather_windows": gather_windows,
         "detect_fused": detect_fused, "window_moments": window_moments,
-        "sample_windows": sample_windows,
+        "sample_windows": sample_windows, "brief_descriptors": brief_descriptors,
         "fast_variant_t1": fv.fast_variant_t1, "fast_variant_t2": fv.fast_variant_t2,
         "fast_variant_t3": fv.fast_variant_t3, "fast_variant_t4": fv.fast_variant_t4,
     }

@@ -54,6 +54,8 @@ _SIGNATURES = {
     "window_moments": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
     # sample_windows(img, h, w, row0, col0, ridx, cidx, k, s, nr, nc, out, stream)
     "sample_windows": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # brief_descriptors(img, h, w, xy, angles, cos, sin, pattern, k, factor, out, stream)
+    "brief_descriptors": [_P, _I, _I, _P, _P, _P, _P, _P, _I, ctypes.c_float, _P, _P],
     # fast_variant_t1(img, out, h, w, cast_early, chain16, in_kind, stream)
     "fast_variant_t1": [_P, _P, _I, _I, _I, _I, _I, _P],
     # fast_variant_t2(img, out, h, w, strip, arc, chunk_rows, chunk_cols, stream)

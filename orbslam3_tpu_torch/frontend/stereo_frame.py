@@ -9,8 +9,8 @@ match with the 11-slide SAD subpixel refinement (one B2 launch gathers the
 left and right strips) and the median-SAD filter: two B2 launches a frame.
 
 Under `FusedKernels` detection runs B3 instead of B1 and orientation and
-rBRIEF run B4 and B5 instead of their B2 windows; the SAD refinement keeps
-its B2 launch.
+rBRIEF run B4 and B5's rBRIEF mode instead of their B2 windows; the SAD
+refinement keeps its B2 launch.
 
 `StereoFrontEnd` holds the constant tables of one image geometry as module
 buffers; `StereoFrontEnd.from_reference` builds them from the numpy

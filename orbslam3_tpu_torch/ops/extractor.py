@@ -60,7 +60,7 @@ class FusedKernels(NamedTuple):
 
     detect: bool = False   # B3: score, per-tile retry and NMS in one call
     moments: bool = False  # B4: the IC moments without a (K, 31, 31) window block
-    sample: bool = False   # B5: the rBRIEF samples without a (K, 37, 37) window block
+    sample: bool = False   # B5's rBRIEF mode: the descriptors in one launch, no window block
 
 
 COMPOSITE_BAND = 4

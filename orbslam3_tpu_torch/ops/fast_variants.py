@@ -11,9 +11,11 @@ zero padding).  They differ in how they reduce the 16 ring differences and
 in how they cut the image; each wrapper takes its TPU function's
 parameters, maps them to a `Variant` (reducer, passes, chain width, tile)
 and launches the one templated kernel of ``csrc/fast_variants.cu`` on a
-CUDA tensor.  On a CPU tensor it runs the plain version: the reducer
-written over 16 shifted tensors, as the TPU code writes it (16-bit chains
-where the TPU's are bf16; the tile does not change the result).
+CUDA tensor (B1's packed core: the arcs reduced on raw ring values, the
+ring differences folded out).  On a CPU tensor it runs the plain version:
+the reducer written over 16 shifted ring-difference tensors, as the TPU
+code writes it (16-bit chains where the TPU's are bf16; the tile does not
+change the result).
 """
 
 from __future__ import annotations
@@ -29,14 +31,22 @@ from orbslam3_tpu_torch.oracle.orb_cpu import FAST_RING
 
 LOGSTEP, VANHERK, PAIRS = "logstep", "vanherk", "pairs"
 LANES = 128  # tile width of the TPU functions without a column chunk
-MAX_TILE_BYTES = 48 * 1024  # the kernel's (rows + 6) x (cols + 6) u8 halo
+# the most shared memory an H100 block can opt in to (kMaxSmem of
+# csrc/fast_variants.cu), which holds the kernel's u16 halo of a tile
+MAX_TILE_BYTES = 232448
+
+
+def halo_bytes(rows: int, cols: int) -> int:
+    """Shared bytes of the kernel's halo of a rows x cols tile: (rows + 6)
+    x (cols rounded up to 4, + 8) u16 (halo_bytes of csrc/fast_variants.cu)."""
+    return 2 * (rows + 6) * (4 * -(-cols // 4) + 8)
 
 
 class Variant(NamedTuple):
     """What a TPU function's parameters mean on the card."""
 
     reducer: str   # LOGSTEP, VANHERK or PAIRS
-    passes: int    # 1, or 2: the differences recomputed for the dark polarity
+    passes: int    # 1, or 2: the ring values loaded again for the dark polarity
     packed: bool   # 16-bit lanes (the TPU's bf16 chains), else int32
     rows: int      # tile rows (the TPU's strip, or its sub-chunk's rows)
     cols: int      # tile cols (the TPU's column chunk, else LANES)
@@ -44,7 +54,7 @@ class Variant(NamedTuple):
     def check(self) -> "Variant":
         if self.rows < 1 or self.cols < 2 or self.cols % 2:
             raise ValueError(f"tile {self.rows}x{self.cols}: rows >= 1 and an even cols >= 2")
-        if (self.rows + 6) * (self.cols + 6) > MAX_TILE_BYTES:
+        if halo_bytes(self.rows, self.cols) > MAX_TILE_BYTES:
             raise ValueError(
                 f"tile {self.rows}x{self.cols}: its halo exceeds {MAX_TILE_BYTES} B of shared memory"
             )

@@ -16,9 +16,11 @@ are equal.
 compositions over B2 windows: gathered by the caller, or by one
 `gather_windows` call of their own; with `fused` they launch
 ``csrc/window_moments.cu`` (B4, which replaces ``_window_moments_pallas``)
-and ``csrc/sample_windows.cu`` (B5, which replaces
+and the index mode of ``csrc/sample_windows.cu`` (B5, which replaces
 ``_sample_windows_pallas``) instead, as the reference does under
-ORBSLAM3_TPU_PALLAS_MOMENTS=1 / ORBSLAM3_TPU_PALLAS_SAMPLE=1.
+ORBSLAM3_TPU_PALLAS_MOMENTS=1 / ORBSLAM3_TPU_PALLAS_SAMPLE=1.  (The
+front-end's fused rBRIEF takes B5's other mode, `ops/brief.brief_descriptors`,
+which needs no index planes.)
 `window_moments_plain` and `sample_windows_plain` are the twins: the same
 compositions over `gather_windows_plain`, launching no hand-written kernel.
 """
@@ -230,7 +232,7 @@ def sample_windows(
     Default: the pick out of B2 windows: `img2d` may be the (K, nr, nc)
     windows at these starts, gathered already (row0 and col0 may then be
     None), else one `gather_windows` call gathers them.  `fused`: the B5
-    kernel on a CUDA image, the plain twin on a CPU image."""
+    kernel's index mode on a CUDA image, the plain twin on a CPU image."""
     if not fused:
         return _samples_of(_windows_at(img2d, row0, col0, nr, nc), ridx, cidx)
     _check_windows(img2d, row0, col0, nr, nc)
@@ -240,8 +242,6 @@ def sample_windows(
         raise ValueError("ridx/cidx must lie on the image's device")
     if img2d.device.type == "cpu":
         return sample_windows_plain(img2d, row0, col0, ridx, cidx, nr, nc)
-    if nr * nc > 48 * 1024:
-        raise ValueError(f"B5 stages the window in shared memory: {nr}x{nc} is too large")
     img2d = img2d.contiguous()
     row0 = row0.to(torch.int32).contiguous()
     col0 = col0.to(torch.int32).contiguous()

@@ -11,7 +11,8 @@ the stereo detection composite (3264x736: both cameras' pyramid crops of
 a 752x480 synthetic stereo pair, 8 levels, as the stereo front-end packs
 them).  For each case it checks the kernel against the plain version bit
 for bit (the check pass: one launch of each case, the launches counted),
-then prints the kernel's device time (a CUDA graph of 20 calls timed with
+after a line per kernel instantiation from ``-Xptxas -v`` (registers,
+spills), then prints the kernel's device time (a CUDA graph of 20 calls timed with
 events) beside B1's (``csrc/fast_score.cu``) on the same image, and the
 bound of the function (``utils/device_time.FAST_SCORE_OPS_PER_PX``, the
 same for every case).  The last line is a JSON list of the results.  Needs
@@ -158,6 +159,23 @@ def run(images: dict, cases: dict = CASES, log=print) -> list:
     return results
 
 
+def ptxas_summary() -> list:
+    """One line per instantiation of the T1-T4 kernel: its template
+    arguments (reducer, passes, packed) as mangled, and what `-Xptxas -v`
+    said of its stack, spills and registers.  Builds the kernel library
+    first; empty when it was built already in an earlier process."""
+    from orbslam3_tpu_torch import _build
+
+    _build.kernels()
+    out, name = [], None
+    for line in _build.build_info["log"].splitlines():
+        if "Compiling entry" in line:
+            name = line.split("fast_variant_kernel")[1].split("EE")[0] if "fast_variant_kernel" in line else None
+        elif name and ("spill" in line or "registers" in line):
+            out.append(f"ptxas {name}: {line.split(': ')[-1].strip()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("bench_fast_variants: torch.cuda.is_available() is False; this harness needs "
@@ -165,6 +183,8 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
+    for line in ptxas_summary():
+        print(line, flush=True)
     images = {
         "harness": torch.from_numpy(harness_image()).to(dev),
         "stereo composite": stereo_detection_composite(dev),

@@ -1,30 +1,39 @@
-"""Check and time B2 and B4, the window kernels, on the card.
+"""Check and time the window kernels B2, B4 and B5 on the card.
 
     python -m orbslam3_tpu_torch.tools.bench_window_kernels [--reps N]
 
 Builds the kernels of the tree it is run from and holds B2
-(``window_gather.gather_windows_many`` / ``gather_windows``) and B4
-(``window_gather.window_moments(fused=True)``) bit for bit against their
-plain versions: at the main path's shapes (752x480 synthetic stereo pair,
-8 levels: the 3454x760 merged composite of both cameras, 1762x760 of one)
-and at the edge cases of `b2_edge_errs` and `b4_edge_errs` (windows that
-touch an image's first and last byte when h*w % 4 != 0, images that are
-views 1-3 bytes past an aligned base, K = 1 and K not a multiple of a
-block's windows, windows under 4 columns, the TPU kernel's largest 48x128
-window, windows too large for one block, two jobs of different shapes in
-one launch) and of `b2_grid_mix_err` (two jobs whose grids differ by 2^20
-blocks).  Then it times,
-N times each (device time of a CUDA graph of 20 calls,
-``utils/device_time.device_ms``): B2 as a stereo frame launches it (the
-orientation + BRIEF pair at K=2000 and the SAD pair at K=1000), each pair
-alone and each of the four shapes alone; B4 at K=1000, 2000 and 5000 on the
-mono composite; and the launch floor (one in-place add on one element).
+(``window_gather.gather_windows_many`` / ``gather_windows``), B4
+(``window_gather.window_moments(fused=True)``) and both modes of B5 (the
+index mode ``window_gather.sample_windows(fused=True)``, the rBRIEF mode
+``brief.brief_descriptors(fused=True)``) bit for bit against their plain
+versions: at the main path's shapes (752x480 synthetic stereo pair, 8
+levels: the 3454x760 merged composite of both cameras, 1762x760 of one)
+and at the edge cases of `b2_edge_errs`, `b4_edge_errs`, `b5_edge_errs`
+and `brief_edge_errs` (windows that touch an image's first and last byte
+when h*w % 4 != 0, images that are views 1-3 bytes past an aligned base,
+K = 1 and K not a multiple of a block's windows, windows under 4 columns,
+the TPU kernel's largest 48x128 window, windows too large for one block,
+two jobs of different shapes in one launch, index planes that are not
+16-byte aligned, keypoints on half-pixel positions and off the image) and
+of `b2_grid_mix_err` (two jobs whose grids differ by 2^20 blocks).  The
+rBRIEF mode is held, with (cos, sin) pinned, against the default
+composition (`brief_descriptors` over a B2 window gather), which both
+this tree and its parent have.  Then it times, N times each (device time
+of a CUDA graph of 20 calls, ``utils/device_time.device_ms``): B2 as a
+stereo frame launches it (the orientation + BRIEF pair at K=2000 and the
+SAD pair at K=1000), each pair alone and each of the four shapes alone; B4
+at K=1000, 2000 and 5000 on the mono composite; B5's index mode at K=1000
+and 5000 on the mono sampling composite; the whole
+``brief_descriptors(fused=True)`` call (angles in degrees, trig in the
+call) at K=1000 and 5000, and the default composition at K=1000; and the
+launch floor (one in-place add on one element).
 
-A tree without ``gather_windows_many`` (the parent of the change that added
-it) gathers each pair as two ``gather_windows`` calls, so one run of this
-tool from each tree, on the same card, alternating (parent, change, change,
-parent), is an A/B of the frame's work.  The last line is a JSON object;
-``exact`` lists every check.  Needs a CUDA card.
+Every function it calls exists in the tree before the rBRIEF mode, so one
+run of this tool from each tree, on the same card, alternating (parent,
+change, change, parent), is an A/B (copy the tool into the parent tree).
+The last line is a JSON object; ``exact`` lists every check.  Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -52,15 +61,6 @@ def _err(got, want) -> float:
     if got.is_cuda:
         torch.cuda.synchronize()
     return float((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
-
-
-def many_fn():
-    """`gather_windows_many`, or its form as one `gather_windows` call per
-    job in a tree that lacks it."""
-    from orbslam3_tpu_torch.ops import window_gather as wg
-
-    many = getattr(wg, "gather_windows_many", None)
-    return many or (lambda jobs: [wg.gather_windows(*job) for job in jobs])
 
 
 def starts(rng, h, w, nr, nc, k, dev):
@@ -106,7 +106,6 @@ def b2_edge_errs(dev, seed: int = SEED) -> dict:
     cases; each case is one launch of one or two jobs."""
     from orbslam3_tpu_torch.ops import window_gather as wg
 
-    many = many_fn()
     rng = np.random.default_rng(seed + 100)
     imgs = _edge_images(dev, seed)
     # the path's shapes, the TPU kernel's largest, and windows under 4
@@ -133,7 +132,7 @@ def b2_edge_errs(dev, seed: int = SEED) -> dict:
             (b, *starts(rng, *b.shape, 37, 37, k, dev), 37, 37),
             (big, *starts(rng, 480, 753, 11, 21, k, dev), 11, 21),
         ]
-    return {label: _err(many(jobs), [wg.gather_windows_plain(*job) for job in jobs])
+    return {label: _err(wg.gather_windows_many(jobs), [wg.gather_windows_plain(*job) for job in jobs])
             for label, jobs in cases.items()}
 
 
@@ -150,7 +149,7 @@ def b2_grid_mix_err(dev, seed: int = SEED) -> float:
     k = 2**20
     img = _edge_images(dev, seed)["97x211 view +1"]
     jobs = [(img, *starts(rng, *img.shape, nr, nc, k, dev), nr, nc) for nr, nc in ((48, 23), (1, 24))]
-    big, small = many_fn()(jobs)
+    big, small = wg.gather_windows_many(jobs)
     err = _err(small, wg.gather_windows_plain(*jobs[1]))
     _, r, c, nr, nc = jobs[0]
     step = 2**16
@@ -213,6 +212,71 @@ def b4_edge_errs(dev, seed: int = SEED) -> dict:
     return errs
 
 
+def b5_edge_errs(dev, seed: int = SEED) -> dict:
+    """{case: max abs err} of B5's index mode against its plain version at
+    the edge cases: the BRIEF sampling (37x37, 512 samples) and other
+    shapes and sample counts (16-byte index loads where S % 16 == 0, the
+    scalar form otherwise), and index planes 4 bytes past an aligned base
+    (the scalar form)."""
+    from orbslam3_tpu_torch.ops import window_gather as wg
+
+    rng = np.random.default_rng(seed + 500)
+    errs = {}
+    for name, img in _edge_images(dev, seed).items():
+        for nr, nc, s in ((37, 37, 512), (11, 21, 128), (11, 21, 100), (1, 1, 16), (48, 128, 1024)):
+            for k in (1, 9, 1001):
+                r, c = starts(rng, *img.shape, nr, nc, k, dev)
+                ri = torch.from_numpy(rng.integers(0, nr, (k, s)).astype(np.int32)).to(dev)
+                ci = torch.from_numpy(rng.integers(0, nc, (k, s)).astype(np.int32)).to(dev)
+                want = wg.sample_windows_plain(img, r, c, ri, ci, nr, nc)
+                errs[f"{name} {nr}x{nc} S={s} K={k}"] = _err(
+                    wg.sample_windows(img, r, c, ri, ci, nr, nc, fused=True), want)
+                if k == 9:
+                    buf = torch.empty(k * s + 1, dtype=torch.int32, device=dev)
+                    buf[1:] = ri.reshape(-1)
+                    errs[f"{name} {nr}x{nc} S={s} K={k} ridx +4 B"] = _err(
+                        wg.sample_windows(img, r, c, buf[1:].view(k, s), ci, nr, nc, fused=True), want)
+    return errs
+
+
+def brief_inputs(rng, h: int, w: int, k: int, dev) -> tuple:
+    """(xy, angles, (cos, sin)) of K keypoints whose BRIEF windows lie in,
+    or up to 3 px off, an (h, w) sampling image: f32 level coordinates, a
+    third of them on half pixels (rounded half to even), the first six far
+    off the image's sides (clamped); angles in degrees, and their (cos, sin)
+    from float64."""
+    # a window starts at rint(xy) + BRIEF_PAD - PATCH_HALF = rint(xy) + 1
+    xy = np.stack([rng.uniform(-4, w - 36 + 3, k), rng.uniform(-4, h - 36 + 3, k)], 1)
+    xy = xy.astype(np.float32)
+    xy[: k // 3] = np.floor(xy[: k // 3]) + 0.5
+    edge = [(-9, 5), (w + 5, 5), (5, -9), (5, h + 5), (-40, h + 40), (w + 40, -40)]
+    xy[: min(6, k)] = np.asarray(edge[: min(6, k)], np.float32)
+    ang = rng.uniform(0, 360, k).astype(np.float32)
+    rad = ang.astype(np.float64) * np.pi / 180.0
+    cos, sin = np.cos(rad).astype(np.float32), np.sin(rad).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (xy, ang)) + (
+        (torch.from_numpy(cos).to(dev), torch.from_numpy(sin).to(dev)),)
+
+
+def brief_edge_errs(dev, seed: int = SEED) -> dict:
+    """{case: number of descriptors that differ} of B5's rBRIEF mode, (cos,
+    sin) pinned, against the default composition (a B2 window gather, then
+    the rotation, picks and pack in PyTorch) on the edge images, K = 1, 9
+    and 1001."""
+    from orbslam3_tpu_torch.ops import brief as tb
+
+    rng = np.random.default_rng(seed + 600)
+    errs = {}
+    for name, img in _edge_images(dev, seed).items():
+        pattern = tb.brief_pattern(dev)
+        for k in (1, 9, 1001):
+            xy, ang, trig = brief_inputs(rng, *img.shape, k, dev)
+            got = tb.brief_descriptors(img, xy, ang, trig, pattern, fused=True)
+            want = tb.brief_descriptors(img, xy, ang, trig, pattern)
+            errs[f"{name} K={k}"] = float((got != want).any(1).sum().item())
+    return errs
+
+
 def launch_floor_ms() -> float:
     """Device time per call of one in-place add on one element: the fixed
     cost of a launch in the CUDA-graph harness of `device_ms`."""
@@ -232,7 +296,7 @@ def main(argv=None) -> int:
     import orbslam3_tpu_torch as port
     from orbslam3_tpu_torch import _build
     from orbslam3_tpu_torch.frontend import stereo_frame as sf
-    from orbslam3_tpu_torch.ops import extractor as ex, pyramid, window_gather as wg
+    from orbslam3_tpu_torch.ops import brief as tb, extractor as ex, pyramid, window_gather as wg
     from orbslam3_tpu_torch.utils.device_time import device_ms
 
     dev = torch.device("cuda")
@@ -247,9 +311,10 @@ def main(argv=None) -> int:
     pyrs = [pyramid.build_pyramid(pair[i], params, fe.resize_taps()) for i in range(2)]
     comps = ex.build_merged_composites(pyrs, fe)
     fe_mono = ex.feature_extractor(params, (H, W), port.FusedKernels(), "cuda")
-    mono = ex.build_merged_composites([pyramid.build_pyramid(pair[0], params, fe_mono.resize_taps())],
-                                      fe_mono).bordered
-    many = many_fn()
+    mono_comps = ex.build_merged_composites(
+        [pyramid.build_pyramid(pair[0], params, fe_mono.resize_taps())], fe_mono)
+    mono, mono_sampling = mono_comps.bordered, mono_comps.sampling
+    many = wg.gather_windows_many
     jobs = path_jobs({"bordered": comps.bordered, "sampling": comps.sampling})
 
     errs = {f"B2 path {p}": _err(many(j), [wg.gather_windows_plain(*x) for x in j])
@@ -263,6 +328,22 @@ def main(argv=None) -> int:
             wg.window_moments(mono, r, c, fe_mono.ic_weights, fused=True),
             wg.window_moments_plain(mono, r, c, fe_mono.ic_weights))
     errs.update({f"B4 {k}": e for k, e in b4_edge_errs(dev).items()})
+    rng = np.random.default_rng(SEED + 700)
+    b5_in, brief_in = {}, {}
+    pattern = fe_mono.brief_pattern
+    for k in (1000, 5000):
+        r, c = starts(rng, *mono_sampling.shape, 37, 37, k, dev)
+        ri, ci = (torch.from_numpy(rng.integers(0, 37, (k, 512)).astype(np.int32)).to(dev)
+                  for _ in range(2))
+        b5_in[k] = (mono_sampling, r, c, ri, ci, 37, 37)
+        errs[f"B5 index mono sampling K={k}"] = _err(
+            wg.sample_windows(*b5_in[k], fused=True), wg.sample_windows_plain(*b5_in[k]))
+        xy, ang, trig = brief_in[k] = brief_inputs(rng, *mono_sampling.shape, k, dev)
+        errs[f"B5 rBRIEF mono sampling K={k} pinned"] = _err(
+            tb.brief_descriptors(mono_sampling, xy, ang, trig, pattern, fused=True),
+            tb.brief_descriptors(mono_sampling, xy, ang, trig, pattern))
+    errs.update({f"B5 index {k}": e for k, e in b5_edge_errs(dev).items()})
+    errs.update({f"B5 rBRIEF {k}": e for k, e in brief_edge_errs(dev).items()})
 
     def frame():
         for j in jobs.values():
@@ -274,14 +355,20 @@ def main(argv=None) -> int:
                   for j in jobs.values() for img, r, c, nr, nc in j})
     timed.update({f"B4 K={k}": (lambda r=r, c=c: wg.window_moments(
         mono, r, c, fe_mono.ic_weights, fused=True)) for k, (r, c) in b4_starts.items()})
+    timed.update({f"B5 index K={k}": (lambda x=x: wg.sample_windows(*x, fused=True))
+                  for k, x in b5_in.items()})
+    timed.update({f"brief_descriptors fused K={k}": (lambda x=x: tb.brief_descriptors(
+        mono_sampling, x[0], x[1], pattern=pattern, fused=True)) for k, x in brief_in.items()})
+    xy, ang, _ = brief_in[1000]
+    timed["brief_descriptors default K=1000"] = lambda: tb.brief_descriptors(
+        mono_sampling, xy, ang, pattern=pattern)
     times = {label: [device_ms(fn) for _ in range(args.reps)] for label, fn in timed.items()}
     times["launch floor (1-element add)"] = [launch_floor_ms() for _ in range(args.reps)]
     for label, ms in times.items():
         print(f"{label} device ms: {' '.join(f'{t:.5f}' for t in ms)}")
     exact = {k: e == 0 for k, e in errs.items()}
     print(f"bit-exact: {sum(exact.values())} of {len(exact)} checks")
-    print(json.dumps(dict(build_s=build_s, many=hasattr(wg, "gather_windows_many"),
-                          times=times, exact=exact)))
+    print(json.dumps(dict(build_s=build_s, times=times, exact=exact)))
     return 0 if all(exact.values()) else 1
 
 

@@ -25,6 +25,10 @@ INT32_OPS_PER_S = 2 * 132 * 64 * 1.98e9
 # 16-bit lanes packed two to a register (__vsub2, __vmins2 / __vmaxs2,
 # __vminu2 / __vmaxu2): two operations per lane op
 INT16X2_OPS_PER_S = 2 * INT32_OPS_PER_S
+# float32 outside the tensor cores, each product, sum and conversion issued
+# on its own (no FMA): 132 SMs x 128 FP32 lanes x 1.98 GHz, half the data
+# sheet's 67 TFLOP/s, which counts an FMA as two operations
+F32_NO_FMA_OPS_PER_S = 132 * 128 * 1.98e9
 
 # The least two-input integer operations per pixel of the FAST-9/16 score
 # minus 1, whichever kernel computes it (B1, B3, T1-T4).  No ring

@@ -8,6 +8,16 @@ bit, borders included (the TPU functions score the zero-padded image).  On
 the CPU the wrappers take the plain versions and launch nothing.  The
 harness modules set JAX's compilation-cache directory when imported; it is
 restored after loading them.
+
+The kernel (``csrc/fast_variants.cu``) forms no ring difference: it
+reduces the raw ring values of the zero-padded image to A (max over the
+16 circular 9-arcs of the arc's min) and B (min over them of the arc's
+max) in the variant's form, and folds score - 1 = max(A - c, c - B) - 1,
+as max(A + 255 - c, c + 255 - B) - 256 in unsigned 16-bit lanes where the
+variant is packed.  `folded_score` below is that arithmetic in plain
+torch, held against `score_plain` and the TPU function for every
+instantiation (reducer x passes x lane width) on the images that take the
+score to both ends of its range (tools/score_extremes.py).
 """
 
 import importlib.util
@@ -21,6 +31,8 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from orbslam3_tpu_torch.ops import fast_variants as fv
+from orbslam3_tpu_torch.oracle.orb_cpu import FAST_RING
+from orbslam3_tpu_torch.tools import score_extremes as se
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(37, 150), (70, 201)]
@@ -145,13 +157,116 @@ def test_wrappers_check_their_arguments():
     with pytest.raises(ValueError, match="contiguous"):
         fv.fast_variant_t3(torch.zeros((16, 32), dtype=torch.uint8)[:, ::2])
     with pytest.raises(ValueError, match="shared memory"):
-        fv.fast_variant_t3(img, 64, 1024)
+        fv.fast_variant_t3(img, 64, 2048)  # a 287,840 B halo, over the 232,448 B an H100 block opts in to
     with pytest.raises(ValueError, match="mode"):
         fv.fast_variant_t3(img, mode="threepass")
     with pytest.raises(ValueError, match="arc"):
         fv.fast_variant_t2(img, 32, "pairs")
     with pytest.raises(ValueError, match="dtypes"):
         fv.fast_variant_t1(img, False, torch.float16)
+
+
+def _block8_vanherk(p: list, op) -> list:
+    """B1's van Herk form (fast_score.cuh arc_reduce): window o < 8 is
+    suffix o of block 0 with prefix o of block 1, window 8 + o suffix o of
+    block 1 with prefix o of block 0."""
+    def scans(b):
+        pf = [b[0]]
+        for k in range(1, 8):
+            pf.append(op(pf[-1], b[k]))
+        sf = [None] * 8
+        sf[7] = b[7]
+        for k in range(6, 0, -1):
+            sf[k] = op(sf[k + 1], b[k])
+        sf[0] = pf[7]
+        return pf, sf
+
+    pf0, sf0 = scans(p[:8])
+    pf1, sf1 = scans(p[8:])
+    return [op(sf0[o], pf1[o]) for o in range(8)] + [op(sf1[o], pf0[o]) for o in range(8)]
+
+
+def _logstep(p: list, op) -> list:
+    """arc_reduce_logstep of fast_score.cuh: circular windows of 2, 4, 8,
+    then the ninth value."""
+    m2 = [op(p[o], p[(o + 1) % 16]) for o in range(16)]
+    m4 = [op(m2[o], m2[(o + 2) % 16]) for o in range(16)]
+    m8 = [op(m4[o], m4[(o + 4) % 16]) for o in range(16)]
+    return [op(m8[o], p[(o + 8) % 16]) for o in range(16)]
+
+
+_WINDOWS = {fv.LOGSTEP: _logstep, fv.VANHERK: _block8_vanherk, fv.PAIRS: fv._win9_pairs}
+
+
+def folded_score(img: torch.Tensor, variant: fv.Variant) -> torch.Tensor:
+    """The kernel's arithmetic for `variant` in plain torch: (h, w) int32."""
+    h, w = img.shape
+
+    def ring():
+        pad = torch.nn.functional.pad(img.to(torch.int32), (3, 3, 3, 3))
+        return [pad[3 + dy : 3 + dy + h, 3 + dx : 3 + dx + w] for dx, dy in FAST_RING.tolist()]
+
+    c = img.to(torch.int32)
+    windows = _WINDOWS[variant.reducer]
+    # two passes load the ring values again for B: the same values
+    a = torch.stack(windows(ring(), torch.minimum)).amax(0)
+    b = torch.stack(windows(ring(), torch.maximum)).amin(0)
+    if not variant.packed:
+        return torch.maximum(a - c, c - b) - 1
+    biased = torch.maximum(a + 255 - c, c + 255 - b)
+    assert int(biased.min()) >= 0 and int(biased.max()) <= 510  # fits an unsigned 16-bit lane
+    return biased - 256
+
+
+# each instantiation of the kernel, by a TPU case that maps to it
+INSTANTIATIONS = [
+    ("t1", (False, None, None)),           # log-step, one pass, int32 lanes
+    ("t2", (32,)),                         # log-step, one pass, u16 lanes
+    ("t4", (48, 384, fv.VANHERK)),         # van Herk, one pass
+    ("t3", (48, 384, "twopass")),          # van Herk, two passes
+    ("t4", (16, 128, fv.PAIRS)),           # pairs, one pass
+]
+SCORE_IMAGES = se.score_images()
+
+
+@pytest.mark.parametrize("name", sorted(SCORE_IMAGES))
+@pytest.mark.parametrize("fn,args", INSTANTIATIONS,
+                         ids=[f"{f}-{i}" for i, (f, _) in enumerate(INSTANTIATIONS)])
+def test_folded_algebra_equals_plain_and_pallas(tpu, fn, args, name):
+    img = SCORE_IMAGES[name]
+    variant = {"t1": fv.t1_variant, "t2": fv.t2_variant, "t3": fv.t3_variant,
+               "t4": fv.t4_variant}[fn](*args)
+    got = folded_score(torch.from_numpy(img), variant)
+    np.testing.assert_array_equal(got.numpy(), PLAIN[fn](torch.from_numpy(img), *args).numpy())
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(_tpu_function(tpu, fn, args)(jnp.asarray(img)))
+    h, w = img.shape
+    np.testing.assert_array_equal(got.numpy(), want[:h, :w])
+
+
+def test_instantiations_cover_every_kernel_form():
+    forms = {(v.reducer, v.passes, v.packed) for v in (
+        {"t1": fv.t1_variant, "t2": fv.t2_variant, "t3": fv.t3_variant, "t4": fv.t4_variant}[f](*a)
+        for f, a in INSTANTIATIONS)}
+    assert forms == {(fv.LOGSTEP, 1, False), (fv.LOGSTEP, 1, True), (fv.VANHERK, 1, True),
+                     (fv.VANHERK, 2, True), (fv.PAIRS, 1, True)}
+
+
+def test_halo_bytes_and_the_tiles_above_48_kb():
+    """The u16 halo of T3's s64 c384 and s48 c768 tiles needs more than the
+    48 KB a block gets without opting in; every harness case fits the
+    232,448 B an H100 block can opt in to, and a cols % 4 == 2 tile rounds
+    its groups up."""
+    from orbslam3_tpu_torch.tools.bench_fast_variants import CASES, FUNCTIONS
+
+    assert fv.halo_bytes(64, 384) == 70 * 392 * 2 == 54880
+    assert fv.halo_bytes(48, 768) == 54 * 776 * 2 == 83808
+    assert fv.halo_bytes(8, 130) == fv.halo_bytes(8, 132) == 14 * 140 * 2
+    sizes = {(fn, label): fv.halo_bytes(FUNCTIONS[fn][2](*args).rows, FUNCTIONS[fn][2](*args).cols)
+             for fn, cases in CASES.items() for label, args in cases}
+    assert max(sizes.values()) <= fv.MAX_TILE_BYTES == 232448
+    assert {k for k, b in sizes.items() if b > 48 * 1024} == {
+        ("t3", "twopass s48 c768"), ("t3", "twopass s64 c384"), ("t4", "pairs s48 c768")}
 
 
 def test_harness_check_pass_and_bound_on_cpu():
@@ -183,7 +298,14 @@ def test_kernels_equal_plain_on_the_card():
     img = torch.from_numpy(
         np.random.default_rng(0).integers(0, 256, (333, 517), np.uint8)
     ).cuda()
+    big = []
     for fn, cases in HARNESS_CASES.items():
-        wrapper, plain, _ = FUNCTIONS[fn]
+        wrapper, plain, mapping = FUNCTIONS[fn]
         for _, args in cases:
             assert torch.equal(wrapper(img, *args), plain(img, *args))
+            v = mapping(*args)
+            big += [args] if fv.halo_bytes(v.rows, v.cols) > 48 * 1024 else []
+    assert len(big) == 3  # T3 s48 c768 and s64 c384, T4 s48 c768: opted in above 48 KB
+    # a tile whose halo needs 144,480 B, and one with cols % 4 == 2
+    for args in ((64, 1024, "twopass"), (7, 258, "onepass")):
+        assert torch.equal(fv.fast_variant_t3(img, *args), fv.fast_variant_t3_plain(img, *args))

@@ -15,6 +15,7 @@ import torch
 from orbslam3_tpu.ops import fast as jf
 from orbslam3_tpu.ops import window_gather as jwg
 from orbslam3_tpu.oracle.orb_cpu import ic_moment_weights
+from orbslam3_tpu_torch.ops import brief as tb
 from orbslam3_tpu_torch.ops import fast as tf
 from orbslam3_tpu_torch.tools import bench_window_kernels, score_extremes
 from orbslam3_tpu_torch.ops import window_gather as twg
@@ -172,16 +173,31 @@ def test_fused_wrappers_on_cpu_use_twins(monkeypatch):
         raise AssertionError("a twin called the B2 wrapper")
 
     monkeypatch.setattr(twg, "gather_windows", no_b2)
-    before = dict(m=twg.window_moments.launches, s=twg.sample_windows.launches)
+    before = dict(m=twg.window_moments.launches, s=twg.sample_windows.launches,
+                  b=tb.brief_descriptors.launches)
     m = twg.window_moments(img, r, c, weights, fused=True)
     want_m = twg.window_moments_plain(img, r, c, weights)
     assert all(torch.equal(a, b) for a, b in zip(m, want_m))
     smp = twg.sample_windows(img, r, c, ridx, cidx, 37, 37, fused=True)
     assert torch.equal(smp, twg.sample_windows_plain(img, r, c, ridx, cidx, 37, 37))
+    xy, ang, trig = bench_window_kernels.brief_inputs(rng, 120, 150, 16, "cpu")
+    desc = tb.brief_descriptors(img, xy, ang, fused=True)
+    assert torch.equal(desc, tb.brief_descriptors_plain(img, xy, ang))
     assert twg.window_moments.launches == before["m"]
     assert twg.sample_windows.launches == before["s"]
+    assert tb.brief_descriptors.launches == before["b"]
     with pytest.raises(ValueError):
         twg.sample_windows(img, r, c, ridx[:3], cidx[:3], 37, 37, fused=True)
+
+
+def test_b5_edge_cases_run_on_cpu():
+    """B5's edge cases of tools/bench_window_kernels.py on CPU tensors, where
+    both modes take their plain twins: every case present and exact (the
+    `cuda` test and chip_smoke.py run them on the card)."""
+    index = bench_window_kernels.b5_edge_errs("cpu")
+    assert len(index) == 4 * 5 * 4 and not any(index.values())
+    brief = bench_window_kernels.brief_edge_errs("cpu")
+    assert len(brief) == 4 * 3 and not any(brief.values())
 
 
 @pytest.mark.cuda
@@ -205,6 +221,17 @@ def test_kernels_match_twins_on_card():
     got = twg.sample_windows(img, r, c, ridx, cidx, 37, 37, fused=True)
     torch.cuda.synchronize()
     assert torch.equal(got, twg.sample_windows_plain(img, r, c, ridx, cidx, 37, 37))
+    # B5's rBRIEF mode: exact with (cos, sin) pinned; with the trig in the
+    # kernel, within the C-h2 bound of the twin's torch.cos / torch.sin
+    xy, ang, trig = bench_window_kernels.brief_inputs(rng, 213, 331, 500, "cuda")
+    got = tb.brief_descriptors(img, xy, ang, trig, fused=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tb.brief_descriptors_plain(img, xy, ang, trig))
+    got = tb.brief_descriptors(img, xy, ang, fused=True)
+    assert int((got != tb.brief_descriptors_plain(img, xy, ang)).any(1).sum()) <= 5
+    for errs in (bench_window_kernels.b5_edge_errs("cuda"),
+                 bench_window_kernels.brief_edge_errs("cuda")):
+        assert {k: e for k, e in errs.items() if e != 0} == {}
     # B4's edge cases: an image's last byte with h*w % 4 != 0, views 1-3
     # bytes past an aligned base, K = 1 and K not a multiple of 8, and the
     # run-time instantiation's shapes up to 48x128
