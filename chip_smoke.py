@@ -67,7 +67,28 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
  13. the dense SearchByProjection matcher that tracking runs on the
      System's device at >= 30000 local-map candidates
      (ops/matching.search_by_projection_batch), at 30000 map points x 1000
-     keypoints, on the card against the CPU: integers equal, card time.
+     keypoints, on the card against the CPU: integers equal, card time;
+ 14. the stereo fisheye path at the TUM-VI configuration: System.from_files
+     on TUM-VI's stereo-inertial settings (two KannalaBrandt8 cameras,
+     512x512, lapping areas over the whole image, 1000 features, the IMU;
+     orbslam3_tpu_torch/tools/tumvi_scene.py), track_stereo with the IMU
+     over 40 rendered frames: every frame tracked, visual-inertial
+     initialisation done, ATE RMSE under 1.2 cm (printed beside the JAX
+     package's on the same frames), map points observed by both cameras,
+     one B1 and one B2 launch per frame (the fisheye path runs no
+     rectified left-right matcher); extract_fisheye_pair on the card
+     against the CPU (integers equal, angles and descriptors within the
+     trig bound) and under FusedKernels(True, True, True) equal to the
+     default;
+ 15. batched prefetch: prefetch_stereo_batch over phase 4's sequence in
+     windows of 8 frames (the last one 6), each handle consumed in order by
+     track_stereo_prefetched: phase 4's poses bit for bit and its map
+     statistics, one B1 and two B2 launches per frame; its stream window per
+     frame beside the per-frame front-end's, measured just before and after;
+ 16. the stereo front-end on a geometry that is not flat (120x160, 1000
+     features: each camera through the per-level extractor): the card
+     against the CPU (integers equal, angles, descriptors, u_right and
+     depth as phase 5), one B1 and three B2 launches.
 
 Phase 2 also requires the port's native host library to build
 (`native.available()`).  Last, no module of JAX or of the JAX package may
@@ -115,6 +136,14 @@ SEED = 1
 # choice and the 3x3 NMS
 B1_OPS_PER_PX = FAST_SCORE_OPS_PER_PX + 1
 B3_OPS_PER_PX = B1_OPS_PER_PX + 2 + 2 + 9
+# phase 14: frames of the TUM-VI sequence, and the JAX package's ATE on the
+# same frames on the CPU (tests/test_torch_fisheye.py::
+# test_tumvi_configuration_matches_reference, slow tier)
+N_FISHEYE = 40
+REF_TUMVI_ATE_CM = 0.2945
+# phase 15: frames per batched prefetch; phase 16: a geometry that is not flat
+BATCH = 8
+NON_FLAT_HW = (120, 160)
 # the dense matcher's inputs: map points x frame keypoints
 MATCH_M, MATCH_K = 30000, 1000
 # the tracking paths launch none of the A/B variants T1-T4
@@ -206,6 +235,182 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def compare_card_cpu(label: str, on_card: np.ndarray, on_cpu: np.ndarray, n: int) -> str:
+    """Equal integer columns (x, y, response, octave, valid) of two packed
+    (n, 40) blocks, angles within 1e-3 degrees and descriptors within the
+    trig bound (at most 1 % differ, by at most 4 bits); returns a summary."""
+    for col, name in ((0, "x"), (1, "y"), (2, "response"), (4, "octave"), (5, "valid")):
+        require(np.array_equal(on_card[:, col], on_cpu[:, col]), f"{label}: column {name} differs")
+    d = np.abs(on_card[:, 3] - on_cpu[:, 3])
+    ang = float(np.minimum(d, 360 - d).max()) if len(d) else 0.0
+    bits = np.unpackbits(
+        on_card[:, 8:].astype(np.uint8) ^ on_cpu[:, 8:].astype(np.uint8), axis=1
+    ).sum(axis=1)
+    n_desc = int((bits > 0).sum())
+    require(ang < 1e-3, f"{label}: angles differ by >= 1e-3 deg")
+    require(n_desc <= max(5, n // 100) and bits.max(initial=0) <= 4,
+            f"{label}: descriptors beyond the trig bound")
+    return (f"ints equal, max angle diff {ang:.3g} deg, {n_desc} descriptors differ "
+            f"(max {int(bits.max(initial=0))} bits)")
+
+
+def phase_fisheye(card: str, port, bench) -> None:
+    """Phase 14: the fisheye-inertial path at the TUM-VI configuration."""
+    from orbslam3_tpu_torch.cameras.models import KannalaBrandt8
+    from orbslam3_tpu_torch.frontend import fisheye
+    from orbslam3_tpu_torch.slam.system import FRONT_END_STREAM_TAG, System
+    from orbslam3_tpu_torch.tools import tumvi_scene
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fis = System.from_files(None, tumvi_scene.write_settings(tmp), sensor=System.IMU_STEREO,
+                                device="cuda")
+    require(isinstance(fis.camera, KannalaBrandt8) and isinstance(fis.camera2, KannalaBrandt8)
+            and fis.lapping1 == (0.0, 511.0) and fis.lapping2 == (0.0, 511.0)
+            and fis.orb_params.n_features == 1000 and fis.imu_calib is not None,
+            "the TUM-VI settings did not configure the fisheye-inertial System")
+    t0 = time.perf_counter()
+    seq = tumvi_scene.system_sequence(fis, N_FISHEYE)
+    phase(f"14 rendered {N_FISHEYE} TUM-VI frames 512x512 (two KB8 cameras, IMU at 200 Hz) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    steps = [
+        (lambda k=k, il=il, ir=ir, imu=imu: fis.track_stereo(il, ir, k / tumvi_scene.FPS, imu=imu),
+         tcw)
+        for k, (il, ir, tcw, imu) in enumerate(seq)
+    ]
+    res = run_entry_point("14 track_stereo fisheye-inertial", fis, steps, FRONT_END_STREAM_TAG,
+                          port, bench)
+    ate = port.ate_rmse(res["est"], res["gt"])
+    m = fis.atlas.get_current_map()
+    both = sum(any(left >= 0 and right >= 0 for left, right in mp.observations.values())
+               for mp in m.get_all_map_points())
+    n_ok = sum(s.name == "OK" for s in res["states"])
+    phase(f"14 track_stereo fisheye-inertial {N_FISHEYE} frames 512x512 on {card}: "
+          f"{n_ok}/{N_FISHEYE} OK, {len(res['est'])} poses, VI initialised {m.imu_initialized}, "
+          f"ATE RMSE {ate * 100:.4f} cm (the JAX package on the CPU, same frames: "
+          f"{REF_TUMVI_ATE_CM} cm), {fis.map_stats()}, {both} map points observed by both cameras")
+    require(n_ok == N_FISHEYE and len(res["est"]) == N_FISHEYE,
+            f"fisheye frames not tracked: {[s.name for s in res['states']]}")
+    require(m.imu_initialized, "visual-inertial initialisation never completed")
+    require(ate < 0.012, f"fisheye-inertial ATE RMSE {ate} m >= 1.2 cm")
+    require(both > 100, f"only {both} map points observed by both cameras")
+    per_frame = {"fast_score": 1, "gather_windows": 1}
+    require(res["launches"] == {k: per_frame.get(k, 0) * N_FISHEYE for k in res["launches"]},
+            f"expected 1 B1 + 1 B2 launches per fisheye frame, got {res['launches']}")
+    phase(f"14 kernel launches per frame: "
+          f"{ {k: v / N_FISHEYE for k, v in res['launches'].items() if v} }")
+
+    # one frame on the card against the CPU, and fused against default
+    il, ir, _, _ = seq[N_FISHEYE // 2]
+    lap = (fis.lapping1, fis.lapping2)
+
+    def block(feats):  # both cameras' dicts as packed rows, for the comparison
+        rows = []
+        for f in feats:
+            n = len(f["kps"])
+            rows.append(np.concatenate([
+                f["kps"], f["response"][:, None], f["angle"][:, None],
+                f["octave"][:, None].astype(np.float32), np.ones((n, 1), np.float32),
+                np.full((n, 2), -1, np.float32), f["desc"].astype(np.float32),
+            ], axis=1))
+        return np.concatenate(rows)
+
+    def pair(device, fused=port.FusedKernels()):
+        feats = fisheye.extract_fisheye_pair(il, ir, fis.orb_params, *lap, device=device,
+                                             fused=fused)
+        return [f["mono_index"] for f in feats], block(feats)
+
+    (mono_card, on_card), (mono_cpu, on_cpu) = pair("cuda"), pair("cpu")
+    require(mono_card == mono_cpu and on_card.shape == on_cpu.shape,
+            "fisheye card vs CPU: keypoint counts or lapping split differ")
+    summary = compare_card_cpu("fisheye card vs CPU", on_card, on_cpu, len(on_cpu))
+    phase(f"14 extract_fisheye_pair card vs CPU: {len(on_cpu)} keypoints of both cameras, "
+          f"{summary}")
+    mono_fused, on_fused = pair("cuda", port.FusedKernels(True, True, True))
+    cols = [c for c in range(on_card.shape[1]) if not np.array_equal(on_card[:, c], on_fused[:, c])]
+    require(mono_fused == mono_card and on_fused.shape == on_card.shape and not cols,
+            f"fisheye fused != default in columns {cols}")
+    phase("14 extract_fisheye_pair under FusedKernels(True, True, True) equal to the default")
+
+
+def phase_batch(frames, poses, stats, fe_ms, card: str, port, bench) -> None:
+    """Phase 15: batched prefetch against phase 4's per-frame run."""
+    from orbslam3_tpu_torch.slam.system import BATCH_STREAM_TAG, FRONT_END_STREAM_TAG, System
+
+    camera = port.Pinhole([FX, FX, W / 2, H / 2])
+
+    def per_frame_windows() -> float:
+        """Median per-frame stream window of the same frames at this point
+        of the process (host-bound windows drift over a long process)."""
+        sysp = System(camera, FX * BASELINE, port.PyramidParams(), device="cuda")
+        bench.records.pop(FRONT_END_STREAM_TAG, None)
+        for l, r, _ in frames:
+            sysp._extract_stereo(l, r)
+        sysp.shutdown()
+        return statistics.median(bench.records[FRONT_END_STREAM_TAG])
+
+    before = per_frame_windows()
+    sysb = System(camera, FX * BASELINE, port.PyramidParams(), device="cuda")
+    bench.records.pop(BATCH_STREAM_TAG, None)
+    port.reset_kernel_launches()
+    got = []
+    t0 = time.perf_counter()
+    for i in range(0, N_FRAMES, BATCH):
+        handles = sysb.prefetch_stereo_batch([(l, r) for l, r, _ in frames[i : i + BATCH]])
+        for j, handle in enumerate(handles):
+            got.append(sysb.track_stereo_prefetched(handle, timestamp=(i + j) / 20.0))
+    wall = (time.perf_counter() - t0) * 1e3 / N_FRAMES
+    launches = port.kernel_launches()
+    got_stats = sysb.map_stats()
+    sysb.shutdown()
+    batch_ms = bench.records[BATCH_STREAM_TAG]
+    after = per_frame_windows()
+    phase(f"15 prefetch_stereo_batch {N_FRAMES} frames {W}x{H} in windows of {BATCH} on {card}: "
+          f"batch stream window per frame median {statistics.median(batch_ms):.4f} ms "
+          f"({len(batch_ms)} windows) against phase 4's per-frame "
+          f"{statistics.median(fe_ms):.4f} ms and the per-frame front-end's just before / after "
+          f"{before:.4f} / {after:.4f} ms; wall {wall:.4f} ms/frame; launches {launches}")
+    require(len(got) == len(poses) == N_FRAMES and all(p is not None for p in got),
+            "batched prefetch lost frames")
+    diff = [k for k, (a, b) in enumerate(zip(got, poses)) if not np.array_equal(a.matrix(), b.matrix())]
+    require(not diff, f"batched prefetch poses differ from track_stereo's at frames {diff}")
+    require(got_stats == stats, f"batched prefetch map {got_stats} != track_stereo's {stats}")
+    require(launches == {k: {"fast_score": 1, "gather_windows": 2}.get(k, 0) * N_FRAMES
+                         for k in launches},
+            f"expected 1 B1 + 2 B2 launches per batch row, got {launches}")
+    phase(f"15 batched prefetch == track_stereo: {N_FRAMES} poses bit for bit, map {got_stats}")
+
+
+def phase_non_flat(port) -> None:
+    """Phase 16: the stereo front-end on a geometry that is not flat."""
+    from orbslam3_tpu_torch.frontend import stereo_frame as sf
+    from orbslam3_tpu_torch.ops.extractor import active_levels, is_flat
+
+    params = port.PyramidParams()
+    h, w = NON_FLAT_HW
+    sizes = params.level_sizes(h, w)
+    require(not is_flat(sizes, params, active_levels(sizes, params)), f"{h}x{w} is flat")
+    cam = port.Pinhole([150.0, 150.0, w / 2, h / 2])
+    pair = torch.from_numpy(np.stack(port.stereo_sequence(1, cam, BASELINE, h, w, seed=SEED)[0][:2]))
+    mbf = 150.0 * BASELINE
+    port.reset_kernel_launches()
+    on_card = sf.front_end(params, (h, w), mbf, 150.0, "cuda")(pair.cuda()).cpu().numpy()
+    launches = port.kernel_launches()
+    on_cpu = sf.front_end(params, (h, w), mbf, 150.0, "cpu")(pair).numpy()
+    summary = compare_card_cpu("non-flat front-end card vs CPU", on_card, on_cpu, len(on_cpu))
+    valid = on_cpu[:, 5] > 0.5
+    agree = [
+        float((np.abs(on_card[:, c] - on_cpu[:, c]) <= 1e-5 * np.abs(on_cpu[:, c]))[valid].mean())
+        for c in (6, 7)
+    ]
+    phase(f"16 stereo front-end {w}x{h}, {len(active_levels(sizes, params))} of {len(sizes)} "
+          f"levels active (not flat): card vs CPU {int(valid.sum())} valid, {summary}, "
+          f"{int((on_cpu[:, 7] > 0).sum())} depths, u_right/depth agree on "
+          f"{agree[0]:.4f}/{agree[1]:.4f} of valid slots; launches {launches}")
+    require(min(agree) >= 0.99, "u_right/depth agree on < 99 % of valid slots")
+    require(launches == {k: {"fast_score": 1, "gather_windows": 3}.get(k, 0) for k in launches},
+            f"expected 1 B1 + 3 B2 launches (two cameras' windows, the SAD strips), got {launches}")
 
 
 def main() -> int:
@@ -380,6 +585,7 @@ def main() -> int:
         sysm.save_trajectory_tum(path)
         with open(path) as f:
             n_saved = len(f.read().strip().splitlines())
+    stereo_stats = sysm.map_stats()
     sysm.shutdown()
     fe_ms = bench.records[FRONT_END_STREAM_TAG]
     ate = port.ate_rmse(est, gt)
@@ -743,6 +949,10 @@ def main() -> int:
     phase(f"13 search_by_projection_batch {MATCH_M} x {MATCH_K}: card == CPU (ints equal, "
           f"{int(on_cpu[2].sum())} matched); device time {card_ms:.4f} ms, CPU wall "
           f"{cpu_ms:.4f} ms")
+
+    phase_fisheye(card, port, bench)
+    phase_batch(frames, est, stereo_stats, fe_ms, card, port, bench)
+    phase_non_flat(port)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu"))
     phase(f"modules of JAX or the JAX package loaded: {leaked or 'none'}")

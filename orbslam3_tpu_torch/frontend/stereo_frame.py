@@ -10,7 +10,15 @@ left and right strips) and the median-SAD filter: two B2 launches a frame.
 
 Under `FusedKernels` detection runs B3 instead of B1 and orientation and
 rBRIEF run B4 and B5's rBRIEF mode instead of their B2 windows; the SAD
-refinement keeps its B2 launch.
+refinement keeps its B2 launch.  On a geometry that is not flat each
+camera takes the per-level `_extract_single` (one B2 launch each unless
+fused), and the matcher still reads the camera-merged composite, as in
+the reference.
+
+`extract_and_match_stereo_packed_batch` runs B frames one after the
+other into one (B, K, 40) block allocated up front: row b is the
+single-frame program on pairs[b], no batch axis inside the program (the
+reference's `lax.scan`, which its own A/B preferred to a `vmap`).
 
 `StereoFrontEnd` holds the constant tables of one image geometry as module
 buffers; `StereoFrontEnd.from_reference` builds them from the numpy
@@ -32,13 +40,12 @@ from orbslam3_tpu_torch.ops.extractor import (
     PACK_COLS,
     FrameFeatures,
     FusedKernels,
+    MergedComposites,
     TableModule,
-    active_levels,
     build_merged_composites,
     detection_crops,
     extract_from_pyramids,
     extraction_tables_np,
-    is_flat,
     pack_features,
 )
 from orbslam3_tpu_torch.ops.fast import detect_two_threshold_multi
@@ -195,11 +202,6 @@ class StereoFrontEnd(TableModule):
         level sizes and scale factors of `PyramidParams` for the matcher."""
         h, w = image_hw
         sizes = params.level_sizes(h, w)
-        if not is_flat(sizes, params, active_levels(sizes, params)):
-            raise NotImplementedError(
-                f"{h}x{w} with {params} is not the flat geometry; the stereo "
-                "front-end for other geometries is not ported yet: ROADMAP A10"
-            )
         scales = params.scale_factors.astype(np.float32)
         tables = dict(
             extraction_tables_np(params, (h, w), 2),
@@ -209,7 +211,7 @@ class StereoFrontEnd(TableModule):
         )
         return cls(params, image_hw, mbf, fx, tables, fused)
 
-    def forward(self, pair: torch.Tensor) -> torch.Tensor:
+    def _check(self, pair: torch.Tensor) -> None:
         if tuple(pair.shape) != (2, *self.image_hw) or pair.dtype != torch.uint8:
             raise ValueError(
                 f"expected a (2, {self.image_hw[0]}, {self.image_hw[1]}) uint8 "
@@ -217,27 +219,43 @@ class StereoFrontEnd(TableModule):
             )
         if pair.device != self.blur_taps.device:
             raise ValueError(f"pair on {pair.device}, front-end on {self.blur_taps.device}")
-        return _pack_features(
-            _extract_and_match_stereo_impl(
-                pair, self.params, self.mbf, self.fx, tables=self, fused=self.fused
-            )
+
+    def extract(self, pair: torch.Tensor) -> tuple[FrameFeatures, FrameFeatures]:
+        """Both cameras' features of a (2, H, W) uint8 pair, without the
+        left-right match (the fisheye path matches on the host)."""
+        self._check(pair)
+        feat_l, feat_r, _ = _extract_pair(pair, self.params, self, self.fused)
+        return feat_l, feat_r
+
+    def features(self, pair: torch.Tensor) -> StereoFrameFeatures:
+        """Both cameras' features and the left-right match, unpacked."""
+        self._check(pair)
+        return _extract_and_match_stereo_impl(
+            pair, self.params, self.mbf, self.fx, tables=self, fused=self.fused
         )
 
+    def forward(self, pair: torch.Tensor) -> torch.Tensor:
+        return _pack_features(self.features(pair))
 
-def _extract_and_match_stereo_impl(
-    pair: torch.Tensor,
-    params: PyramidParams,
-    mbf: float = DEFAULT_MBF,
-    fx: float = DEFAULT_FX,
-    tables: StereoFrontEnd | None = None,
-    fused: FusedKernels = FusedKernels(),
-) -> StereoFrameFeatures:
-    """pair: (2, H, W) uint8 — the full stereo perception front-end;
-    `tables` defaults to the cached front-end of this geometry."""
-    if tables is None:
-        tables = front_end(
-            params, tuple(pair.shape[1:]), float(mbf), float(fx), str(pair.device), fused
-        )
+    def batch(self, pairs: torch.Tensor) -> torch.Tensor:
+        """(B, 2, H, W) uint8 -> (B, K, 40) f32: row b is `forward(pairs[b])`,
+        written into one block allocated before the first frame runs."""
+        if pairs.dim() != 4 or pairs.shape[0] == 0:
+            raise ValueError(f"expected a (B, 2, H, W) batch, got {tuple(pairs.shape)}")
+        k = sum(int(q) for q in self.params.features_per_level())  # the slots of a frame
+        out = torch.empty((pairs.shape[0], k, PACK_COLS), dtype=torch.float32, device=pairs.device)
+        for b in range(pairs.shape[0]):
+            out[b] = self(pairs[b])
+        return out
+
+
+def _extract_pair(
+    pair: torch.Tensor, params: PyramidParams, tables: StereoFrontEnd, fused: FusedKernels,
+) -> tuple[FrameFeatures, FrameFeatures, MergedComposites]:
+    """Both cameras' features and the camera-merged composites: both
+    pyramids, one detection pass over both cameras' crops, then the
+    extractor (shared work on the flat geometry, `_extract_single` per
+    camera otherwise)."""
     pyr_l = build_pyramid(pair[0], params, tables.resize_taps())
     pyr_r = build_pyramid(pair[1], params, tables.resize_taps())
     act_l, crops_l = detection_crops(pyr_l, params)
@@ -258,6 +276,22 @@ def _extract_and_match_stereo_impl(
         comps=comps,
         fused=fused,
     )
+    return feat_l, feat_r, comps
+
+
+def _extract_and_match_stereo_impl(
+    pair: torch.Tensor,
+    params: PyramidParams,
+    mbf: float = DEFAULT_MBF,
+    fx: float = DEFAULT_FX,
+    tables: StereoFrontEnd | None = None,
+    fused: FusedKernels = FusedKernels(),
+) -> StereoFrameFeatures:
+    """pair: (2, H, W) uint8 — the full stereo perception front-end;
+    `tables` defaults to the cached front-end of this geometry."""
+    if tables is None:
+        tables = _front_end_of(pair, params, mbf, fx, fused)
+    feat_l, feat_r, comps = _extract_pair(pair, params, tables, fused)
     # the SAD refinement reads the bordered raw composite; the interior
     # offset +pad is folded into the per-level origins
     u_right, depth = stereo_match(
@@ -284,6 +318,50 @@ def front_end(
     return StereoFrontEnd.from_reference(params, image_hw, mbf, fx, fused).to(device)
 
 
+def _front_end_of(
+    pairs: torch.Tensor, params: PyramidParams, mbf: float, fx: float, fused: FusedKernels,
+) -> StereoFrontEnd:
+    """The cached front-end of a pair's (or a batch's) geometry and device."""
+    if not isinstance(pairs, torch.Tensor):
+        raise TypeError("pairs must be a torch.Tensor on the device to run on")
+    return front_end(
+        params, tuple(pairs.shape[-2:]), float(mbf), float(fx), str(pairs.device), fused
+    )
+
+
+def extract_and_match_stereo(
+    pair: torch.Tensor,
+    params: PyramidParams,
+    mbf: float = DEFAULT_MBF,
+    fx: float = DEFAULT_FX,
+    fused: FusedKernels = FusedKernels(),
+) -> StereoFrameFeatures:
+    """(2, H, W) uint8 pair -> both cameras' features and the left-right
+    match on the pair's device."""
+    return _front_end_of(pair, params, mbf, fx, fused).features(pair)
+
+
+def extract_and_match_stereo_sequence(
+    pairs: torch.Tensor,
+    params: PyramidParams,
+    mbf: float = DEFAULT_MBF,
+    fx: float = DEFAULT_FX,
+    fused: FusedKernels = FusedKernels(),
+) -> StereoFrameFeatures:
+    """(N, 2, H, W) uint8 pairs -> `extract_and_match_stereo` of each, every
+    leaf stacked along a leading N axis (the offline / mapping form)."""
+    fe = _front_end_of(pairs, params, mbf, fx, fused)
+    outs = [fe.features(pair) for pair in pairs]
+
+    def stack(parts):
+        return FrameFeatures(*(torch.stack(leaf) for leaf in zip(*parts)))
+
+    return StereoFrameFeatures(
+        stack([o.left for o in outs]), stack([o.right for o in outs]),
+        torch.stack([o.u_right for o in outs]), torch.stack([o.depth for o in outs]),
+    )
+
+
 def extract_and_match_stereo_packed(
     pair: torch.Tensor,
     params: PyramidParams,
@@ -294,9 +372,20 @@ def extract_and_match_stereo_packed(
     """(2, H, W) uint8 pair -> ONE (K, 40) f32 block on the pair's device:
     the left camera block + u_right/depth (unpack with
     `unpack_host_features`)."""
-    if not isinstance(pair, torch.Tensor):
-        raise TypeError("pair must be a torch.Tensor on the device to run on")
-    return _pack_features(_extract_and_match_stereo_impl(pair, params, mbf, fx, fused=fused))
+    return _front_end_of(pair, params, mbf, fx, fused)(pair)
+
+
+def extract_and_match_stereo_packed_batch(
+    pairs: torch.Tensor,
+    params: PyramidParams,
+    mbf: float = DEFAULT_MBF,
+    fx: float = DEFAULT_FX,
+    fused: FusedKernels = FusedKernels(),
+) -> torch.Tensor:
+    """(B, 2, H, W) uint8 -> (B, K, 40) f32 on the batch's device: row b is
+    `extract_and_match_stereo_packed(pairs[b])` bit for bit (the batched
+    prefetch's unit of work, `System.prefetch_stereo_batch`)."""
+    return _front_end_of(pairs, params, mbf, fx, fused).batch(pairs)
 
 
 def unpack_host_features(arr: np.ndarray) -> dict:

@@ -12,7 +12,8 @@ composite masks, per-slot metadata) come from a `tables` module holding
 them on the device: `FeatureExtractor` for one camera,
 `frontend.stereo_frame.StereoFrontEnd` for the stereo pair.
 `FusedKernels` picks the front-end's kernels, as the reference's three
-environment switches do.
+environment switches do.  `split_lapping` orders a fisheye camera's
+keypoints mono first, those in its lapping area at the tail.
 """
 
 from __future__ import annotations
@@ -446,10 +447,12 @@ def extraction_tables_np(params: PyramidParams, image_hw: tuple, n_cams: int) ->
     """The extractor's constant tables for `n_cams` cameras of one geometry,
     from the numpy oracle's sources (the port's copy): the resize taps
     (`_linear_coeffs`), blur taps (`gaussian_kernel7_fixed`), IC moment
-    weights (`ic_moment_weights`), BRIEF pattern (`BIT_PATTERN_31`) and the
-    detection mask of every camera's active crops.  The flat geometry adds
-    the merged composite's interior mask, the interior origins of each
-    (camera, level) block (`row_off`, `col_off`) and the per-slot tables."""
+    weights (`ic_moment_weights`), BRIEF pattern (`BIT_PATTERN_31`), the
+    detection mask of every camera's active crops, the merged composite's
+    interior mask and the interior origins of each (camera, level) block
+    (`row_off`, `col_off`; the stereo matcher reads them on every
+    geometry, as the reference builds the merged composites on every
+    geometry).  The flat geometry adds the per-slot tables."""
     h, w = image_hw
     sizes = params.level_sizes(h, w)
     active = active_levels(sizes, params)
@@ -464,18 +467,31 @@ def extraction_tables_np(params: PyramidParams, image_hw: tuple, n_cams: int) ->
         brief_pattern=brief_pattern_np(),
         det_mask=det_mask,
     )
+    _, place, merged_mask = merged_layout(sizes * n_cams)
+    n = len(sizes)
+    y0 = tuple(tuple(p[0] for p in place[c * n : (c + 1) * n]) for c in range(n_cams))
+    x0 = tuple(tuple(p[1] for p in place[c * n : (c + 1) * n]) for c in range(n_cams))
+    tables.update(
+        merged_mask=merged_mask,
+        row_off=np.asarray(y0, np.int32) + COMPOSITE_BAND,
+        col_off=np.asarray(x0, np.int32) + COMPOSITE_BAND,
+    )
     if is_flat(sizes, params, active):
-        _, place, merged_mask = merged_layout(sizes * n_cams)
-        n = len(sizes)
-        y0 = tuple(tuple(p[0] for p in place[c * n : (c + 1) * n]) for c in range(n_cams))
-        x0 = tuple(tuple(p[1] for p in place[c * n : (c + 1) * n]) for c in range(n_cams))
-        tables.update(
-            merged_mask=merged_mask,
-            row_off=np.asarray(y0, np.int32) + COMPOSITE_BAND,
-            col_off=np.asarray(x0, np.int32) + COMPOSITE_BAND,
-            **slot_tables_np(params, y0, x0, COMPOSITE_BAND),
-        )
+        tables.update(slot_tables_np(params, y0, x0, COMPOSITE_BAND))
     return tables
+
+
+def split_lapping(feat_np: dict, lapping: tuple[float, float]) -> tuple[np.ndarray, int]:
+    """Order valid slots mono-first / stereo-tail (operator() :1289-1303).
+
+    Returns (permutation over valid entries, mono_index).
+    """
+    xy = feat_np["xy"]
+    valid = feat_np["valid"]
+    idx = np.nonzero(valid)[0]
+    in_lap = (xy[idx, 0] >= lapping[0]) & (xy[idx, 0] <= lapping[1])
+    order = np.concatenate([idx[~in_lap], idx[in_lap][::-1]])
+    return order, int((~in_lap).sum())
 
 
 class FeatureExtractor(TableModule):

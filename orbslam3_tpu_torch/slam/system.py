@@ -9,9 +9,7 @@ System.cc:197).
 
 The front-end runs on an explicit torch `device` ("cuda" by default,
 raising when no GPU is present; "cpu" runs the kernels' plain versions),
-with the kernels `fused` picks (`FusedKernels`).  Entry points whose
-front-end is not ported yet raise `NotImplementedError` naming their
-ROADMAP item.
+with the kernels `fused` picks (`FusedKernels`).
 """
 
 from __future__ import annotations
@@ -23,6 +21,7 @@ import numpy as np
 import torch
 
 from orbslam3_tpu_torch._device import resolve_device
+from orbslam3_tpu_torch.frontend import fisheye
 from orbslam3_tpu_torch.frontend.stereo_frame import front_end, unpack_host_features
 from orbslam3_tpu_torch.ops.extractor import FusedKernels, feature_extractor, pack_features
 from orbslam3_tpu_torch.oracle.orb_cpu import PyramidParams
@@ -41,23 +40,34 @@ from orbslam3_tpu_torch.utils.lie import SE3
 FRONT_END_STREAM_TAG = "1.1_GrabImageStereo.extract.stream"
 MONO_STREAM_TAG = "1.1_GrabImageMonocular.extract.stream"
 RGBD_STREAM_TAG = "1.1_GrabImageRGBD.extract.stream"
+# the batched prefetch's stream window divided by its B frames
+BATCH_STREAM_TAG = "1.1_GrabImageStereo.extract_batch.stream"
 
 
 class _SharedBatchFetch:
-    """One lazily-fetched (B, K, 40) batch result shared by B frame handles
-    (prefetch_stereo_batch): the first consumer pays the single device->host
-    transfer, the rest read the cached host array."""
+    """One (B, K, 40) batch result shared by B frame handles
+    (prefetch_stereo_batch).  On CUDA `out` is a pinned host tensor that a
+    side-stream copy fills and `done` the event recorded after it, with
+    `keep` (the device block) held until then; the first consumer waits on
+    the event, the rest read the cached host array."""
 
-    __slots__ = ("out", "_host")
+    __slots__ = ("out", "done", "keep", "window", "_host")
 
-    def __init__(self, out):
+    def __init__(self, out: torch.Tensor, done=None, keep=None, window=None):
         self.out = out
+        self.done = done
+        self.keep = keep
+        self.window = window  # (start event, B) of the batch's stream window
         self._host = None
 
     def host(self) -> np.ndarray:
         if self._host is None:
-            self._host = np.asarray(self.out)
-            self.out = None  # free the device buffer reference
+            if self.done is not None:
+                self.done.synchronize()
+                start, n = self.window
+                Benchmark.the().push_sample(BATCH_STREAM_TAG, start.elapsed_time(self.done) / n)
+            self._host = self.out.numpy()
+            self.out = self.done = self.keep = self.window = None
         return self._host
 
 
@@ -233,12 +243,14 @@ class System:
         pair = torch.from_numpy(np.ascontiguousarray(np.stack([img_l, img_r])))
         return pair.to(self.device, non_blocking=True)
 
-    def _on_device(self, tag: str, run) -> dict:
-        """run() -> a (K, 40) packed block on `self.device`; returns the
-        compacted numpy feature arrays, recording the stream window of
-        run() and the copy to the host under `tag` on CUDA."""
+    def _on_device(self, tag: str, run, unpack=None):
+        """run() -> a packed block on `self.device`; returns unpack() of it
+        on the host (by default `unpack_host_features`: the compacted numpy
+        feature arrays), recording the stream window of run() and the copy
+        to the host under `tag` on CUDA."""
+        unpack = unpack or unpack_host_features
         if self.device.type != "cuda":
-            return unpack_host_features(run().numpy())
+            return unpack(run().numpy())
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -247,7 +259,7 @@ class System:
         host = packed.cpu().numpy()  # waits for the front-end
         end.synchronize()
         Benchmark.the().push_sample(tag, start.elapsed_time(end))
-        return unpack_host_features(host)
+        return unpack(host)
 
     def _extract_stereo(self, img_l: np.ndarray, img_r: np.ndarray):
         """Front-end on `self.device` -> compacted numpy feature arrays."""
@@ -266,8 +278,40 @@ class System:
         return self._on_device(tag, run)
 
     def _extract_stereo_fisheye(self, img_l: np.ndarray, img_r: np.ndarray):
-        raise NotImplementedError(
-            "stereo fisheye (lapping areas) is not ported yet: ROADMAP A10"
+        """Fisheye stereo front-end (Frame fisheye ctor role,
+        ORB_SLAM3/src/Frame.cc:1089-1191): per-camera extraction on
+        `self.device` with lapping split, kNN overlap matching, KB8
+        triangulation -> depths."""
+        fe = self._front_end(img_l.shape)
+        fl, fr = self._on_device(
+            FRONT_END_STREAM_TAG,
+            lambda: fisheye.pair_block(fe, self._pair(img_l, img_r)),
+            lambda host: fisheye.split_pair_block(host, self.lapping1, self.lapping2),
+        )
+        level_sigma2 = np.asarray(self.scale_factors, np.float64) ** 2
+        tlr = self.Tlr if self.Tlr is not None else SE3()
+        depth_l, l2r, r2l, p3d_l = fisheye.compute_stereo_fisheye_matches(
+            fl, fr, self.camera, self.camera2 or self.camera,
+            tlr, level_sigma2,
+        )
+        # Concatenated Nleft/Nright frame layout (reference fisheye Frame
+        # ctor, src/Frame.cc:1089-1135): left block then right block; right
+        # keypoints are first-class observation slots.
+        n_l, n_r = len(fl["kps"]), len(fr["kps"])
+        return dict(
+            kps=np.concatenate([fl["kps"], fr["kps"]]),
+            octave=np.concatenate([fl["octave"], fr["octave"]]),
+            angle=np.concatenate([fl["angle"], fr["angle"]]),
+            response=np.concatenate([fl["response"], fr["response"]]),
+            desc=np.concatenate([fl["desc"], fr["desc"]]),
+            u_right=np.full(n_l + n_r, -1.0),
+            depth=np.concatenate([depth_l, np.full(n_r, -1.0)]),
+            n_left=n_l,
+            camera2=self.camera2 or self.camera,
+            Tlr=tlr,
+            left_to_right=l2r,
+            right_to_left=r2l,
+            stereo_p3d=p3d_l,
         )
 
     def track_stereo(
@@ -326,32 +370,64 @@ class System:
         """Start the front-end for a FUTURE frame without blocking; returns
         a handle for `track_stereo_prefetched`.  On CUDA the work and the
         copy of the (K, 40) block into a pinned host buffer run on a side
-        stream, so the host can track the previous frame meanwhile."""
-        if self.lapping1 is not None:
-            raise NotImplementedError(
-                "stereo fisheye (lapping areas) is not ported yet: ROADMAP A10"
-            )
+        stream, so the host can track the previous frame meanwhile.  As in
+        the reference, this is the pinhole program whatever the camera:
+        not meaningful for the fisheye path (host-side kNN matching)."""
         img_l, img_r = self._preprocess_stereo(img_l, img_r)
         fe = self._front_end(img_l.shape)
         if self.device.type != "cuda":
             return (fe(self._pair(img_l, img_r)).numpy(), None, None, img_l.shape)
-        if self._side_stream is None:
-            self._side_stream = torch.cuda.Stream(self.device)
-        stream = self._side_stream
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
+        with self._on_side_stream():
             packed = fe(self._pair(img_l, img_r))
-            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-            host.copy_(packed, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(stream)
+            host, done = self._to_pinned(packed)
         # `packed` rides in the handle so its memory outlives the copy
         return (host, done, packed, img_l.shape)
 
+    def _on_side_stream(self):
+        """The side stream as the current stream, ordered after the work
+        queued so far on the current one."""
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        self._side_stream.wait_stream(torch.cuda.current_stream(self.device))
+        return torch.cuda.stream(self._side_stream)
+
+    @staticmethod
+    def _to_pinned(packed: torch.Tensor):
+        """(pinned host tensor, event): the copy of `packed` queued on the
+        current stream and the event recorded after it."""
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event(enable_timing=True)
+        done.record()
+        return host, done
+
     def prefetch_stereo_batch(self, pairs: list):
-        raise NotImplementedError(
-            "batched prefetch is not ported yet: ROADMAP queue A, prefetch_stereo_batch"
-        )
+        """Batched prefetch: start the front-end for B future frames as one
+        batch program (`StereoFrontEnd.batch`, the frames one after the
+        other into one (B, K, 40) block) and return one handle per frame,
+        each consumable by track_stereo_prefetched in order.
+
+        On CUDA the program and one copy of the block into pinned host
+        memory run on the side stream, with one event after the copy; the
+        first handle consumed waits on it.  On the CPU the same program
+        runs synchronously.  The throughput mode for mapping-rate /
+        multi-robot workloads.  `pairs` is a list of (img_l, img_r)."""
+        if not pairs:
+            raise ValueError("prefetch_stereo_batch needs at least one (img_l, img_r) pair")
+        pre = [self._preprocess_stereo(il, ir) for il, ir in pairs]
+        shape = pre[0][0].shape
+        fe = self._front_end(shape)
+        batch = torch.from_numpy(np.stack([np.stack(p) for p in pre]))
+        if self.device.type != "cuda":
+            fetch = _SharedBatchFetch(fe.batch(batch))
+        else:
+            with self._on_side_stream():
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                packed = fe.batch(batch.to(self.device, non_blocking=True))
+                host, done = self._to_pinned(packed)
+            fetch = _SharedBatchFetch(host, done, packed, (start, len(pre)))
+        return [(_BatchRow(fetch, i), None, None, p[0].shape) for i, p in enumerate(pre)]
 
     def track_stereo_prefetched(
         self, handle, timestamp: float, imu: tuple | None = None
@@ -363,7 +439,7 @@ class System:
         if done is not None:
             done.synchronize()
             host = host.numpy()
-        feats = unpack_host_features(host)
+        feats = unpack_host_features(np.asarray(host))
         return self.track_stereo_features(
             feats, timestamp, (0, 0, shape[1], shape[0]), imu=imu
         )
@@ -531,10 +607,13 @@ class System:
         use_viewer: bool = False,
         viewer_dir: str = "viewer_out",
         sequential: bool = True,
+        *,
+        device: str | torch.device = "cuda",
     ) -> "System":
         """Reference-ctor parity: System(vocFile, settingsFile, sensor,
         bUseViewer) (include/System.h:105).  Vocabulary files ending in
-        .txt load the DBoW2 text format (ORBvoc.txt), .npz the native one."""
+        .txt load the DBoW2 text format (ORBvoc.txt), .npz the native one.
+        `device` as in the constructor."""
         from orbslam3_tpu_torch.utils.settings import load_settings
 
         st = load_settings(settings_file, sensor)
@@ -613,6 +692,7 @@ class System:
             rectifier=rectifier,
             resize_to=resize_to,
             **fisheye_kwargs,
+            device=device,
         )
         sysm.settings = st
         sysm.depth_map_factor = st.depth_map_factor

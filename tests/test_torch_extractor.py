@@ -12,6 +12,7 @@ angles and descriptors must be equal too."""
 
 import dataclasses
 
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -45,7 +46,7 @@ def _port(geometry, config):
     hw, params, flat = GEOMETRIES[geometry]
     params = TPyramidParams(**dataclasses.asdict(params))  # the port's own class
     fe = tex.FeatureExtractor.from_reference(params, hw, CONFIGS[config])
-    assert ("merged_mask" in dict(fe.named_buffers())) == flat
+    assert ("slot_scale" in dict(fe.named_buffers())) == flat  # the flat path's tables
     return fe(torch.from_numpy(_image(*hw)))
 
 
@@ -82,13 +83,11 @@ def _np_trig(angles):
     return np.cos(rad).astype(np.float32), np.sin(rad).astype(np.float32)
 
 
-@pytest.mark.parametrize("config", sorted(CONFIGS))
-@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
-def test_extract_features_exact_with_pinned_trig(geometry, config, monkeypatch):
-    """Both extractors with atan2 and cos/sin taken in numpy from the same
-    exact moments: every column equal.  The reference runs eagerly here
-    (its jit is memoized by tests/conftest.py, which would not see the
-    patch)."""
+def pin_trig(monkeypatch) -> None:
+    """Both packages' extractors take atan2 and cos/sin in numpy from the
+    same exact moments.  A reference program patched so must run eagerly:
+    its jit is memoized by tests/conftest.py, which would not see the
+    patch."""
 
     def jax_angles(img, xy):
         m10, m01 = jo.patch_moments(img, xy)
@@ -112,6 +111,37 @@ def test_extract_features_exact_with_pinned_trig(geometry, config, monkeypatch):
     monkeypatch.setattr(jex, "brief_descriptors", jax_brief)
     monkeypatch.setattr(tex, "ic_angles", port_angles)
     monkeypatch.setattr(tex, "brief_descriptors", port_brief)
+
+
+def pin_trig_jit(monkeypatch) -> None:
+    """`pin_trig`, with the reference's atan2 and cos/sin as host callbacks,
+    so that a reference program traced after it can run jitted (eagerly a
+    stereo frame takes minutes on the CPU)."""
+    pin_trig(monkeypatch)
+
+    def jax_angles(img, xy):
+        m10, m01 = jo.patch_moments(img, xy)
+        out = jax.ShapeDtypeStruct(m10.shape, jnp.float32)
+        return jax.pure_callback(
+            lambda a, b: _np_angles(np.asarray(a), np.asarray(b)), out, m10, m01
+        )
+
+    def jax_brief(samp, xy, angles):
+        out = jax.ShapeDtypeStruct(angles.shape, jnp.float32)
+        trig = jax.pure_callback(lambda a: _np_trig(np.asarray(a)), (out, out), angles)
+        return jb.brief_descriptors(samp, xy, angles, trig=trig)
+
+    monkeypatch.setattr(jex, "ic_angles", jax_angles)
+    monkeypatch.setattr(jex, "brief_descriptors", jax_brief)
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_extract_features_exact_with_pinned_trig(geometry, config, monkeypatch):
+    """Both extractors with atan2 and cos/sin taken in numpy from the same
+    exact moments (`pin_trig`): every column equal.  The reference runs
+    eagerly here."""
+    pin_trig(monkeypatch)
     hw, params, _ = GEOMETRIES[geometry]
     want = jex.extract_features(jnp.asarray(_image(*hw)), params)
     got = _port(geometry, config)

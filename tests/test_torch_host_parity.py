@@ -9,8 +9,13 @@ asserted bit-identical: no tolerance is needed.  The torch dense matcher
 (`search_by_projection_batch`, the reference's is JAX) must equal the
 reference's integers, ties included.  One port `System` and one reference
 `System` track the same 10-frame stereo sequence; an atlas the reference
-saves loads into the port.
+saves loads into the port.  Forty-one of the copies differ from the
+reference in nothing but the package's name and the upstream C++ paths
+their comments cite; a test holds each to that.
 """
+
+import os
+import re
 
 import numpy as np
 import jax.numpy as jnp
@@ -35,6 +40,23 @@ from orbslam3_tpu_torch.slam import system as port_system
 from orbslam3_tpu_torch.slam.system import System
 from orbslam3_tpu_torch.utils import lie
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the copies whose text is the reference's with `orbslam3_tpu` renamed and
+# the upstream C++ paths in comments written ORB_SLAM3/...
+VERBATIM_COPIES = [
+    "cameras/__init__.py", "cameras/models.py", "frontend/__init__.py", "frontend/rectify.py",
+    "imu/__init__.py", "imu/initialization.py", "imu/preintegration.py", "ops/__init__.py",
+    "ops/brief_pattern.py", "optim/__init__.py", "optim/bundle_adjustment.py",
+    "optim/essential_graph.py", "optim/global_ba.py", "optim/inertial.py", "optim/local_ba.py",
+    "optim/local_inertial_ba.py", "optim/pnp.py", "optim/pose_optimization.py",
+    "optim/sim3_optimizer.py", "optim/sim3_solver.py", "optim/triangulate.py",
+    "optim/two_view.py", "oracle/__init__.py", "oracle/stereo_cpu.py", "slam/__init__.py",
+    "slam/frame.py", "slam/keyframe.py", "slam/local_mapping.py", "slam/loop_closing.py",
+    "slam/map.py", "slam/map_point.py", "slam/relocalization.py", "utils/__init__.py",
+    "utils/lie.py", "utils/settings.py", "utils/synth.py", "utils/trajectory.py",
+    "utils/viewer.py", "vocab/__init__.py", "vocab/keyframe_database.py",
+    "vocab/vocabulary.py",
+]
 FX = 350.0
 H, W = 384, 512
 MBF = FX * 0.12
@@ -130,6 +152,17 @@ def test_host_function_matches_reference(case):
     assert len(got) == len(want) > 0
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("path", VERBATIM_COPIES)
+def test_copy_differs_from_reference_only_in_names(path):
+    def read(package):
+        with open(os.path.join(REPO, package, path)) as f:
+            return f.read()
+
+    want = re.sub(r"\borbslam3_tpu\b", "orbslam3_tpu_torch", read("orbslam3_tpu"))
+    want = re.sub(r"/[a-z]+/reference/", "ORB_SLAM3/", want)
+    assert read("orbslam3_tpu_torch") == want
 
 
 # --- the dense device matcher ------------------------------------------------

@@ -6,8 +6,9 @@ finds no `import` / `from` of `jax*` or `orbslam3_tpu(.*)` at any depth
 function.  A subprocess whose `sys.meta_path` refuses `jax` and
 `orbslam3_tpu` drives the port's host paths on the CPU: stereo, mono and
 RGB-D frames, the device local-map matcher (DEVICE_MATCH_MIN lowered),
-`trace_range` and `device_trace`, the trajectory savers, and an atlas
-saved by the port and one saved by the reference, both loaded by the port.
+`trace_range` and `device_trace`, the trajectory savers, an atlas saved
+by the port and one saved by the reference, both loaded by the port, the
+stereo fisheye path and batched prefetch.
 """
 
 import ast
@@ -129,6 +130,28 @@ _SCRIPT = textwrap.dedent(
     for k, (img, depth, _) in enumerate(rgbd_sequence(2, small, 240, 320, seed=2)):
         rgbd.track_rgbd(img, depth, timestamp=k / 20.0)
     rgbd.shutdown()
+
+    # the stereo fisheye path and batched prefetch
+    import numpy as np
+    import orbslam3_tpu_torch.oracle.stereo_cpu
+    from orbslam3_tpu_torch.cameras.models import KannalaBrandt8
+    from orbslam3_tpu_torch.tools import tumvi_scene
+    from orbslam3_tpu_torch.utils.lie import SE3
+
+    kb8 = KannalaBrandt8([133.3, 133.3, 160.0, 120.0, 0.0035, 0.0008, -0.0034, 0.0006])
+    rig = System(kb8, 13.3, params, camera2=kb8, Tlr=SE3(np.eye(3), np.array([0.1, 0.0, 0.0])),
+                 lapping1=(100.0, 220.0), lapping2=(100.0, 220.0), device="cpu")
+    tlr = SE3(np.eye(3), np.array([0.1, 0.0, 0.0]))
+    for k, (l, r, _, _) in enumerate(tumvi_scene.sequence(kb8, kb8, tlr, SE3(), 240, 320, 2)):
+        assert rig.track_stereo(l, r, timestamp=k / 20.0) is not None
+    assert rig.tracker.current.n_left < rig.tracker.current.n
+    rig.shutdown()
+    batch = System(small, 42.0, params, device="cpu")
+    frames = stereo_sequence(2, small, 0.12, 240, 320, seed=1)
+    handles = batch.prefetch_stereo_batch([(l, r) for l, r, _ in frames])
+    for k, handle in enumerate(handles):
+        batch.track_stereo_prefetched(handle, timestamp=k / 20.0)
+    batch.shutdown()
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu"))
     assert not leaked, leaked

@@ -89,5 +89,15 @@ def test_extract_from_pyramids_matches_packed_block(packed):
 
 
 def test_non_flat_geometry_raises():
-    with pytest.raises(NotImplementedError, match="A10"):
-        tsf.StereoFrontEnd.from_reference(TPyramidParams(n_features=50), (64, 80))
+    """A geometry that is not flat (64x80, 50 features: five of eight
+    levels inactive) raises no more: the front-end builds, runs each
+    camera through `_extract_single` and matches on the merged composite
+    (tests/test_torch_batch.py holds it against the reference)."""
+    fe = tsf.StereoFrontEnd.from_reference(TPyramidParams(n_features=50), (64, 80))
+    assert "slot_scale" not in dict(fe.named_buffers())
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (64, 80), dtype=np.uint8)
+    out = fe(torch.from_numpy(np.stack([img, np.roll(img, -4, axis=1)])))
+    assert tuple(out.shape) == (50, tsf.PACK_COLS)
+    valid = out[:, 5] > 0.5
+    assert valid.sum() > 0 and (out[valid, 4] <= 2).all()  # only levels 0-2 are active

@@ -68,16 +68,27 @@ def test_device_is_explicit():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             System(camera, FX * BASELINE)
+    # the entry points that once raised NotImplementedError run on the CPU
+    # when asked: batched prefetch, and the fisheye path's track_stereo and
+    # prefetch_stereo (the pinhole program, as in the reference)
     sysm = System(camera, FX * BASELINE, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError):
         sysm.prefetch_stereo_batch([])
-    # stereo fisheye (lapping areas) is still to port
-    fisheye = System(camera, FX * BASELINE, lapping1=(0.0, W), device="cpu")
-    img = np.zeros((H, W), np.uint8)
-    with pytest.raises(NotImplementedError, match="A10"):
-        fisheye.track_stereo(img, img, 0.0)
-    with pytest.raises(NotImplementedError, match="A10"):
-        fisheye.prefetch_stereo(img, img)
+    frames = stereo_sequence(2, camera, BASELINE, H, W, seed=1)
+    handles = sysm.prefetch_stereo_batch([(l, r) for l, r, _ in frames])
+    assert [h[3] for h in handles] == [(H, W)] * 2
+    assert sysm.track_stereo_prefetched(handles[0], 0.0) is not None
+    from orbslam3_tpu_torch.cameras.models import KannalaBrandt8
+    from orbslam3_tpu_torch.utils.lie import SE3
+
+    kb8 = KannalaBrandt8([FX, FX, W / 2, H / 2, 0.0, 0.0, 0.0, 0.0])
+    fisheye = System(kb8, FX * BASELINE, camera2=kb8, Tlr=SE3(np.eye(3), [BASELINE, 0.0, 0.0]),
+                     lapping1=(0.0, W), lapping2=(0.0, W), device="cpu")
+    l, r, _ = frames[0]
+    assert fisheye.track_stereo(l, r, 0.0) is not None
+    assert fisheye.tracker.current.n_left < fisheye.tracker.current.n
+    host, done, _, _ = fisheye.prefetch_stereo(l, r)
+    np.testing.assert_array_equal(host, handles[0][0].__array__())
 
 
 def test_port_never_imports_jax():
