@@ -88,7 +88,21 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
  16. the stereo front-end on a geometry that is not flat (120x160, 1000
      features: each camera through the per-level extractor): the card
      against the CPU (integers equal, angles, descriptors, u_right and
-     depth as phase 5), one B1 and three B2 launches.
+     depth as phase 5), one B1 and three B2 launches;
+ 17. the EuRoC driver (orbslam3_tpu_torch.examples.run_euroc) on a EuRoC
+     ASL tree written here with utils.imageio: 30 frames of a distorted
+     752x480 rig at MH01's calibration and imu0; stereo, stereo-inertial
+     and --batch 8, each with every frame in its trajectory file, ATE under
+     2 cm through tools.evaluate_ate, one B1 and two B2 launches a frame;
+     PNG decode, device remap and tracking ms per frame printed, the remap
+     on the card equal to the CPU's;
+ 18. the TUM-RGBD driver under --fused detect,moments,sample on phase 9's
+     sequence as a TUM tree (colour read as grey, 16-bit depth): every
+     frame, ATE under 2 cm, one B3, one B4 and one B5 rBRIEF launch a
+     frame;
+ 19. the entry hook's step on the card against the CPU (integers equal),
+     and the bench's measurement at 16 frames, its headline printed.
+Phase 1 also prints whether cv2 is importable (the port needs none).
 
 Phase 2 also requires the port's native host library to build
 (`native.available()`).  Last, no module of JAX or of the JAX package may
@@ -103,6 +117,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import statistics
@@ -148,6 +163,23 @@ NON_FLAT_HW = (120, 160)
 MATCH_M, MATCH_K = 30000, 1000
 # the tracking paths launch none of the A/B variants T1-T4
 NO_T_LAUNCHES = {f"fast_variant_t{i}": 0 for i in range(1, 5)}
+# phase 17: a EuRoC rig at MH01's calibration (cam0 / cam1 intrinsics and
+# radtan distortion), its right camera rotated a few mrad, 0.11 m apart
+EUROC_CAMS = (
+    ([458.654, 457.296, 367.215, 248.375], [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05]),
+    ([457.587, 456.134, 379.999, 255.238], [-0.28368365, 0.07451284, -0.00010473, -3.55590700e-05]),
+)
+EUROC_T0_NS = 1403636579 * 10**9
+EUROC_BATCH = 8
+# phase 19: the bench's frames at the smoke's reduced count
+BENCH_FRAMES = 16
+FUSED_PER_FRAME = {"detect_fused": 1, "window_moments": 1, "brief_descriptors": 1}
+# the System's own stage records a driver run prints (host wall, or the
+# stream window between CUDA events for `.stream`)
+STAGE_TAGS = (
+    "1.0_GrabImageStereo.preprocess", "1.1_GrabImageStereo.extract",
+    "1.1_GrabImageStereo.extract.stream", "1.1_GrabImageRGBD.extract.stream", "2_Track",
+)
 # the least operations of one keypoint's rBRIEF descriptor: per pattern
 # point 4 multiplies, 2 adds and 2 roundings, then 256 compares; each
 # product and sum is rounded on its own (no FMA), so they count at
@@ -413,6 +445,217 @@ def phase_non_flat(port) -> None:
             f"expected 1 B1 + 3 B2 launches (two cameras' windows, the SAD strips), got {launches}")
 
 
+def _settings_text(cams, w: int, h: int, extra: str) -> str:
+    """An ORB-SLAM3 settings file of one or two pinhole cameras."""
+    lines = ['%YAML:1.0', '---', 'File.version: "1.0"', 'Camera.type: "PinHole"']
+    for c, (k, dist) in enumerate(cams, start=1):
+        lines += [f"Camera{c}.{n}: {v}" for n, v in zip(("fx", "fy", "cx", "cy"), k)]
+        lines += [f"Camera{c}.{n}: {v}" for n, v in zip(("k1", "k2", "p1", "p2"), dist or ())]
+    lines += [f"Camera.width: {w}", f"Camera.height: {h}", "Camera.fps: 20", "Camera.RGB: 1",
+              "ORBextractor.nFeatures: 1000", "ORBextractor.scaleFactor: 1.2",
+              "ORBextractor.nLevels: 8", "ORBextractor.iniThFAST: 20",
+              "ORBextractor.minThFAST: 7"]
+    return "\n".join(lines) + "\n" + extra
+
+
+def _opencv_matrix(name: str, t) -> str:
+    m = np.eye(4)
+    m[:3, :3], m[:3, 3] = t.R, t.t
+    data = ",".join(f"{v:.12f}" for v in m.reshape(-1))
+    return f"{name}: !!opencv-matrix\n  rows: 4\n  cols: 4\n  dt: f\n  data: [{data}]\n"
+
+
+def _write_tum(path: str, stamps, tcws) -> None:
+    """Ground truth in the TUM format: t x y z qx qy qz qw of Twc."""
+    from orbslam3_tpu_torch.utils.trajectory import rot_to_quat
+
+    with open(path, "w") as f:
+        for ts, tcw in zip(stamps, tcws):
+            twc = tcw.inverse()
+            f.write(f"{ts:.6f} " + " ".join(f"{v:.9f}" for v in (*twc.t, *rot_to_quat(twc.R)))
+                    + "\n")
+
+
+def _driver_run(label: str, run, n: int, traj: str, gt: str, per_frame: dict, port, bench):
+    """Run a dataset driver with the kernel counts set to 0 just before and
+    read just after; every frame in its trajectory file and ATE < 2 cm
+    through tools.evaluate_ate; its launches per frame as `per_frame`."""
+    from orbslam3_tpu_torch.examples.common import DECODE_TAG, TRACK_TAG
+    from orbslam3_tpu_torch.tools.evaluate_ate import evaluate
+
+    for tag in (DECODE_TAG, TRACK_TAG, *STAGE_TAGS):
+        bench.records.pop(tag, None)
+    port.reset_kernel_launches()
+    t0 = time.perf_counter()
+    slam = run()
+    wall = time.perf_counter() - t0
+    launches = port.kernel_launches()
+    with open(traj) as f:
+        n_saved = len([line for line in f if line.strip()])
+    res = evaluate(traj, gt, False, 0.02)
+    decode = bench.records[DECODE_TAG]
+    track = bench.records[TRACK_TAG]
+    phase(f"{label}: {n_saved}/{n} frames in the trajectory, ATE RMSE "
+          f"{res.get('value', float('nan')) * 100:.4f} cm over {res.get('pairs')} pairs "
+          f"(tools.evaluate_ate), {slam.map_stats()}; ms/frame: decode {sum(decode) / n:.4f} "
+          f"({len(decode) // n} PNGs a frame), track median {statistics.median(track):.4f} "
+          f"(after frame 0 {statistics.median(track[1:]):.4f}); driver wall {wall:.1f} s; "
+          f"launches per frame {({k: v / n for k, v in launches.items() if v})}")
+    stages = {tag: statistics.median(bench.records[tag]) for tag in STAGE_TAGS
+              if bench.records.get(tag)}
+    phase(f"{label}: System stages, median ms a call: "
+          + ", ".join(f"{tag} {ms:.4f}" for tag, ms in stages.items()))
+    require(n_saved == n and res.get("pairs") == n, f"{label}: frames missing from {traj}")
+    require(res["value"] < 0.02, f"{label}: ATE RMSE {res['value']} m >= 2 cm")
+    require(launches == {k: per_frame.get(k, 0) * n for k in launches},
+            f"{label}: expected {per_frame} launches per frame, got {launches}")
+    return slam
+
+
+def phase_euroc(card: str, port, bench) -> None:
+    """Phase 17: a EuRoC ASL tree through examples.run_euroc on the card."""
+    from orbslam3_tpu_torch.examples import run_euroc
+    from orbslam3_tpu_torch.frontend.rectify import remap_bilinear
+    from orbslam3_tpu_torch.utils import imageio
+    from orbslam3_tpu_torch.utils.lie import SE3, so3_exp
+    from orbslam3_tpu_torch.utils.synth import imu_samples_between
+
+    cam_l, cam_r = (port.Pinhole(k, d) for k, d in EUROC_CAMS)
+    t_rl = SE3(so3_exp(np.array([0.004, -0.006, 0.002])), np.array([-0.11, 0.001, -0.0008]))
+    tbc = SE3(so3_exp(np.array([0.0, 0.0, np.pi / 2])), np.array([-0.0216, -0.0647, 0.0098]))
+    t0 = time.perf_counter()
+    frames = port.stereo_sequence(N_FRAMES, cam_l, 0.11, H, W, seed=3, camera_r=cam_r, T_rl=t_rl)
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = os.path.join(tmp, "mav0")
+        stamps = [EUROC_T0_NS + int(k / 20.0 * 1e9) for k in range(N_FRAMES)]
+        for cam, side in (("cam0", 0), ("cam1", 1)):
+            os.makedirs(os.path.join(seq, cam, "data"))
+            with open(os.path.join(seq, cam, "data.csv"), "w") as f:
+                f.write("#timestamp [ns],filename\n")
+                for ns, fr in zip(stamps, frames):
+                    imageio.imwrite(os.path.join(seq, cam, "data", f"{ns}.png"), fr[side])
+                    f.write(f"{ns},{ns}.png\n")
+        os.makedirs(os.path.join(seq, "imu0"))
+        with open(os.path.join(seq, "imu0", "data.csv"), "w") as f:
+            f.write("#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z\n")
+            for k in range(N_FRAMES - 1):
+                acc, gyro, dts = imu_samples_between(k, k + 1, Tbc=tbc)
+                t = stamps[k]
+                for a, g, dt in zip(acc, gyro, dts):
+                    t += int(dt * 1e9)
+                    f.write(",".join(str(v) for v in (t, *g, *a)) + "\n")
+        stereo = os.path.join(tmp, "EuRoC.yaml")
+        rig = "Stereo.ThDepth: 60.0\n" + _opencv_matrix("Stereo.T_c1_c2", t_rl.inverse())
+        with open(stereo, "w") as f:
+            f.write(_settings_text(EUROC_CAMS, W, H, rig))
+        inertial = os.path.join(tmp, "EuRoC_VI.yaml")
+        with open(inertial, "w") as f:
+            f.write(_settings_text(EUROC_CAMS, W, H, rig + (
+                "IMU.NoiseGyro: 1.7e-4\nIMU.NoiseAcc: 2.0e-3\nIMU.GyroWalk: 1.9e-5\n"
+                "IMU.AccWalk: 3.0e-3\nIMU.Frequency: 200\n") + _opencv_matrix("IMU.T_b_c1", tbc)))
+        phase(f"17 wrote a EuRoC ASL tree of {N_FRAMES} distorted {W}x{H} stereo frames and "
+              f"{(N_FRAMES - 1) * 10} IMU samples with utils.imageio in "
+              f"{time.perf_counter() - t0:.1f} s")
+        runs = (
+            ("17 run_euroc stereo", stereo, "stereo", {}),
+            ("17 run_euroc stereo-inertial", inertial, "stereo-inertial", {}),
+            (f"17 run_euroc stereo --batch {EUROC_BATCH}", stereo, "stereo",
+             {"batch": EUROC_BATCH}),
+        )
+        # ground truth in the rectified left camera's frame (Tcw_rect = R1 Tcw)
+        gt = os.path.join(tmp, "gt.txt")
+        r1 = SE3(_rectifier_of(stereo, "stereo").R1, np.zeros(3))
+        _write_tum(gt, [ns * 1e-9 for ns in stamps], [r1 * f[2] for f in frames])
+        for i, (label, settings, sensor, kw) in enumerate(runs):
+            out = os.path.join(tmp, f"run{i}")
+            os.makedirs(out)
+            slam = _driver_run(
+                label, lambda: run_euroc.main(seq, settings, None, sensor, device="cuda",
+                                              out_dir=out, **kw),
+                N_FRAMES, os.path.join(out, "CameraTrajectory.txt"), gt,
+                {"fast_score": 1, "gather_windows": 2}, port, bench,
+            )
+        rect = slam.rectifier
+        pair = torch.from_numpy(np.stack(frames[0][:2]))
+        maps = [torch.from_numpy(np.stack(m))
+                for m in ((rect.map1x, rect.map2x), (rect.map1y, rect.map2y))]
+        dev_pair, dev_maps = pair.cuda(), [m.cuda() for m in maps]
+        require(torch.equal(remap_bilinear(dev_pair, *dev_maps).cpu(), remap_bilinear(pair, *maps)),
+                "the remap on the card differs from the CPU's")
+        remap = cuda_ms(lambda: remap_bilinear(dev_pair, *dev_maps))
+        upload = cuda_ms(lambda: pair.cuda())
+        phase(f"17 device remap of a frame's two {W}x{H} images (one pass) on {card}: {remap:.4f} ms "
+              f"(CUDA events), equal to the CPU's; their upload from pageable memory "
+              f"{upload:.4f} ms")
+
+
+def _rectifier_of(settings: str, sensor: str):
+    """The rectifier System.from_files builds from `settings`."""
+    from orbslam3_tpu_torch.utils.settings import load_settings
+
+    return load_settings(settings, sensor).make_rectifier()
+
+
+def phase_tum_rgbd(card: str, port, bench) -> None:
+    """Phase 18: a TUM-RGBD tree through examples.run_tum_rgbd under --fused."""
+    from orbslam3_tpu_torch.examples import run_tum_rgbd
+    from orbslam3_tpu_torch.utils import imageio
+
+    camera = port.Pinhole([FX, FX, W / 2, H / 2])
+    frames = port.rgbd_sequence(N_FRAMES, camera, H, W, seed=2, depth_noise=0.002,
+                                depth_factor=5000.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = os.path.join(tmp, "seq")
+        os.makedirs(os.path.join(seq, "rgb"))
+        os.makedirs(os.path.join(seq, "depth"))
+        stamps = [1305031100.0 + k / 20.0 for k in range(N_FRAMES)]
+        with open(os.path.join(seq, "associations.txt"), "w") as f:
+            for ts, (img, depth, _) in zip(stamps, frames):
+                # colour whose channels differ: reading it as grey runs libpng's formula
+                bgr = np.stack([img, img, np.clip(img.astype(int) + 9, 0, 255)], -1)
+                imageio.imwrite(os.path.join(seq, "rgb", f"{ts:.6f}.png"), bgr.astype(np.uint8))
+                imageio.imwrite(os.path.join(seq, "depth", f"{ts:.6f}.png"),
+                                np.clip(depth, 0, 65535).astype(np.uint16))
+                f.write(f"{ts:.6f} rgb/{ts:.6f}.png {ts:.6f} depth/{ts:.6f}.png\n")
+        settings = os.path.join(tmp, "TUM.yaml")
+        with open(settings, "w") as f:
+            f.write(_settings_text([([FX, FX, W / 2, H / 2], None)], W, H,
+                                   f"Camera.bf: {FX * 0.08}\nStereo.ThDepth: 40.0\n"
+                                   "RGBD.DepthMapFactor: 5000.0\n"))
+        gt = os.path.join(tmp, "gt.txt")
+        _write_tum(gt, stamps, [f[2] for f in frames])
+        _driver_run(
+            "18 run_tum_rgbd --fused detect,moments,sample",
+            lambda: run_tum_rgbd.main(seq, settings, device="cuda",
+                                      fused=port.FusedKernels(True, True, True), out_dir=tmp),
+            N_FRAMES, os.path.join(tmp, "CameraTrajectory.txt"), gt, FUSED_PER_FRAME, port, bench,
+        )
+
+
+def phase_entry_and_bench(card: str) -> None:
+    """Phase 19: the entry hook on the card, and the bench at a reduced
+    frame count."""
+    from orbslam3_tpu_torch import bench as port_bench
+    from orbslam3_tpu_torch.entry import entry
+
+    fn, (pair,) = entry("cuda")
+    cpu_fn, (cpu_pair,) = entry("cpu")
+    got, want = fn(pair), cpu_fn(cpu_pair)
+    for side in ("left", "right"):
+        g, w = getattr(got, side), getattr(want, side)
+        for col in ("xy", "octave", "response", "valid"):
+            require(torch.equal(getattr(g, col).cpu(), getattr(w, col)),
+                    f"entry(): {side} {col} on the card differs from the CPU's")
+    require(torch.equal((got.u_right >= 0).cpu(), want.u_right >= 0), "entry(): matches differ")
+    phase(f"19 entry(): the stereo step on {pair.device} 120x160, 4 levels, 256 features: "
+          f"{int(got.left.valid.sum())} left keypoints, {int((got.u_right >= 0).sum())} "
+          f"matched; integer columns equal to the CPU's")
+    r = port_bench.measure(BENCH_FRAMES, warmup=3, batch=EUROC_BATCH)
+    phase(f"19 bench at {BENCH_FRAMES} frames on {card}: stream window median "
+          f"{r['window_ms']:.4f} ms/frame, batched ({EUROC_BATCH}) {r['batch_ms']:.4f} ms/frame")
+    phase("19 bench headline: " + json.dumps(port_bench.final_line(r["wall_ms"])))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a GPU",
@@ -439,6 +682,8 @@ def main() -> int:
     card = card_line()
     phase(f"1 device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
+    phase(f"1 cv2 importable here: {importlib.util.find_spec('cv2') is not None} "
+          f"(the port needs none: utils.imageio reads PNGs, the remap is its own)")
 
     # phase 2 -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -953,6 +1198,9 @@ def main() -> int:
     phase_fisheye(card, port, bench)
     phase_batch(frames, est, stereo_stats, fe_ms, card, port, bench)
     phase_non_flat(port)
+    phase_euroc(card, port, bench)
+    phase_tum_rgbd(card, port, bench)
+    phase_entry_and_bench(card)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu"))
     phase(f"modules of JAX or the JAX package loaded: {leaked or 'none'}")

@@ -6,20 +6,22 @@ remap applied by System::TrackStereo before tracking
 (ORB_SLAM3/src/System.cc:253-263).  The reference delegates to
 cv::stereoRectify / cv::initUndistortRectifyMap / cv::remap; here the
 transforms and maps are re-derived in vectorized NumPy (validated against
-cv2 in tests/test_rectify.py) so the framework is self-contained, while the
-per-frame remap uses cv2.remap when available (it is ~10x faster than the
-NumPy path and bit-compatible within fixed-point rounding).
+cv2 in tests/test_rectify.py) so the framework is self-contained, and the
+per-frame remap is OpenCV's INTER_LINEAR kernel reproduced bit for bit as
+torch ops on an explicit device (`remap_bilinear`); no cv2 is needed.
 
-Pipeline position: rectification runs on host BEFORE the device extractor —
-exactly the reference's placement — so the device front-end always sees
-row-aligned stereo pairs and the row-constrained LR matcher
-(frontend/stereo_frame.py) is valid on raw EuRoC-style input.
+Pipeline position: rectification runs BEFORE the device extractor —
+exactly the reference's placement, on the System's device — so the
+front-end always sees row-aligned stereo pairs and the row-constrained LR
+matcher (frontend/stereo_frame.py) is valid on raw EuRoC-style input.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from orbslam3_tpu_torch._device import resolve_device
 from orbslam3_tpu_torch.utils.lie import so3_exp, so3_log
 
 
@@ -144,37 +146,56 @@ def init_undistort_rectify_map(
     return mapx, mapy
 
 
-def remap_bilinear(img: np.ndarray, mapx: np.ndarray, mapy: np.ndarray) -> np.ndarray:
-    """Bilinear remap with zero border (cv::remap INTER_LINEAR,
-    BORDER_CONSTANT 0).  Uses cv2 when importable, NumPy otherwise."""
-    try:
-        import cv2
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf(a, b, c) for float32 values held in float64 tensors: a * b is
+    exact in float64, the sum is rounded to odd (TwoSum, then one ulp
+    toward the exact value when inexact and even), so the one rounding to
+    float32 that follows is the correctly rounded fused result."""
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((err != 0) & even, torch.nextafter(s, s + err), s)
+    return s.to(torch.float32)
 
-        return cv2.remap(img, mapx, mapy, cv2.INTER_LINEAR)
-    except ImportError:
-        pass
-    h, w = img.shape[:2]
-    x = np.asarray(mapx, np.float64)
-    y = np.asarray(mapy, np.float64)
-    x0 = np.floor(x).astype(np.int64)
-    y0 = np.floor(y).astype(np.int64)
-    fx = x - x0
-    fy = y - y0
 
-    def sample(yy, xx):
-        inside = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
-        vals = img[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)].astype(np.float64)
-        return np.where(inside, vals, 0.0)
+def remap_bilinear(img: torch.Tensor, mapx: torch.Tensor, mapy: torch.Tensor) -> torch.Tensor:
+    """cv::remap(img, mapx, mapy, INTER_LINEAR, BORDER_CONSTANT 0) for a
+    uint8 (H, W) image and float32 (Ho, Wo) maps, bit for bit, computed on
+    img's device; a leading batch axis on all three remaps B images at
+    once (the two cameras of a pair in one pass).
 
-    out = (
-        sample(y0, x0) * (1 - fx) * (1 - fy)
-        + sample(y0, x0 + 1) * fx * (1 - fy)
-        + sample(y0 + 1, x0) * (1 - fx) * fy
-        + sample(y0 + 1, x0 + 1) * fx * fy
+    OpenCV 5's kernel works in float32 with fused multiply-adds (its 4.x
+    kernel used 1/32-px fixed point; tests/test_torch_cv2_free.py holds
+    this one to the cv2 it runs against): per output pixel the taps at
+    (floor(x), floor(y)) and their right / lower neighbours, each tap
+    outside the image reading 0, then
+    v0 = fma(ax, p01 - p00, p00), v1 = fma(ax, p11 - p10, p10),
+    v = fma(ay, v1 - v0, v0), rounded half to even and saturated to u8.
+    Map coordinates that are not finite read 0, as cv2's do."""
+    h, w = img.shape[-2:]
+    dev = img.device
+    batch = img.reshape(-1, h, w)
+    n = batch.shape[0]
+    mapx = torch.nan_to_num(mapx.to(dev, torch.float32), nan=-8.0, posinf=w + 8.0, neginf=-8.0)
+    mapy = torch.nan_to_num(mapy.to(dev, torch.float32), nan=-8.0, posinf=h + 8.0, neginf=-8.0)
+    fx, fy = torch.floor(mapx), torch.floor(mapy)
+    ax, ay = (mapx - fx).double(), (mapy - fy).double()  # exact in float32
+    # a 2-px zero border reads 0 for every tap outside: a tap more than one
+    # pixel outside is clamped into the border
+    padded = torch.nn.functional.pad(batch, (2, 2, 2, 2)).reshape(-1)
+    pw = w + 4
+    base = (fy.clamp(-2, h).to(torch.int64) + 2) * pw + fx.clamp(-2, w).to(torch.int64) + 2
+    base = (base.reshape(n, -1) + torch.arange(n, device=dev)[:, None] * ((h + 4) * pw)).reshape(
+        mapx.shape
     )
-    if np.issubdtype(img.dtype, np.integer):
-        return np.clip(np.round(out), 0, 255).astype(img.dtype)
-    return out.astype(img.dtype)
+    taps = padded[torch.stack([base, base + 1, base + pw, base + pw + 1])].double()
+    p00, p01, p10, p11 = taps.unbind(0)
+    v0 = _fma_f32(ax, p01 - p00, p00)
+    v1 = _fma_f32(ax, p11 - p10, p10)
+    v = _fma_f32(ay, (v1 - v0).double(), v0.double())
+    return torch.round(v).clamp(0, 255).to(torch.uint8)
 
 
 class StereoRectifier:
@@ -229,8 +250,16 @@ class StereoRectifier:
         self.bf = float(abs(P2[0, 3]))
         self.size = out_size
 
-    def rectify(self, img_l: np.ndarray, img_r: np.ndarray):
-        return (
-            remap_bilinear(img_l, self.map1x, self.map1y),
-            remap_bilinear(img_r, self.map2x, self.map2y),
-        )
+    def rectify(self, img_l: np.ndarray, img_r: np.ndarray, device: str | torch.device = "cuda"):
+        """Both images remapped on `device` -> two uint8 (H, W) tensors
+        there; the maps move to a device once."""
+        dev = resolve_device(device)
+        on_device = self.__dict__.setdefault("_device_maps", {})  # torch.device -> maps
+        maps = on_device.get(dev)
+        if maps is None:  # (2, H, W) x and y maps of both cameras
+            maps = tuple(torch.from_numpy(np.stack(m)).to(dev)
+                         for m in ((self.map1x, self.map2x), (self.map1y, self.map2y)))
+            on_device[dev] = maps
+        pair = torch.from_numpy(np.ascontiguousarray(np.stack([img_l, img_r])))
+        left, right = remap_bilinear(pair.to(dev, non_blocking=True), *maps).unbind(0)
+        return left, right

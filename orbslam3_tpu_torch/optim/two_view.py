@@ -90,6 +90,65 @@ def _score_h(h, p1, p2, sigma=1.0):
     return float(score[inl].sum()), inl
 
 
+def _opposite_of_minor(m, row, col):
+    x1, x2 = (1 if col == 0 else 0), (1 if col == 2 else 2)
+    y1, y2 = (1 if row == 0 else 0), (1 if row == 2 else 2)
+    return m[y1, x2] * m[y2, x1] - m[y1, x1] * m[y2, x2]
+
+
+def _sign(x):
+    return 1.0 if x >= 0 else -1.0
+
+
+def _rotation_from(h, t_star, n, v):
+    """R = H (I - (2 / v) t* n^T), its sign flipped when det(R) < 0."""
+    r = h @ (np.eye(3) - (2.0 / v) * np.outer(t_star, n))
+    return -r if np.linalg.det(r) < 0 else r
+
+
+def decompose_homography(h, k):
+    """cv2.decomposeHomographyMat(h, k) as a list of (R, t, n): OpenCV's
+    HomographyDecompInria (Malis & Vargas 2007, calib3d
+    homography_decomp.cpp), the same solutions in the same order —
+    (Ra, ta, na), (Ra, -ta, -na), (Rb, tb, nb), (Rb, -tb, -nb) — or one
+    (H, 0, 0) when the normalised H is a rotation."""
+    hn = np.linalg.inv(k) @ np.asarray(h, np.float64) @ k
+    hn = hn * (1.0 / np.linalg.svd(hn, compute_uv=False)[1])
+    s = hn.T @ hn - np.eye(3)
+    if np.abs(s).max() < 1e-3:
+        return [(hn, np.zeros(3), np.zeros(3))]
+    m00, m11, m22 = (_opposite_of_minor(s, i, i) for i in range(3))
+    rt00, rt11, rt22 = np.sqrt(m00), np.sqrt(m11), np.sqrt(m22)
+    e01 = _sign(_opposite_of_minor(s, 0, 1))
+    e12 = _sign(_opposite_of_minor(s, 1, 2))
+    e02 = _sign(_opposite_of_minor(s, 0, 2))
+    # the row of the largest |S_ii| gives the two normals
+    a00, a11, a22 = abs(s[0, 0]), abs(s[1, 1]), abs(s[2, 2])
+    idx = (2 if a11 < a22 else 1) if a00 < a11 else (2 if a00 < a22 else 0)
+    if idx == 0:
+        npa = np.array([s[0, 0], s[0, 1] + rt22, s[0, 2] + e12 * rt11])
+        npb = np.array([s[0, 0], s[0, 1] - rt22, s[0, 2] - e12 * rt11])
+    elif idx == 1:
+        npa = np.array([s[0, 1] + rt22, s[1, 1], s[1, 2] - e02 * rt00])
+        npb = np.array([s[0, 1] - rt22, s[1, 1], s[1, 2] + e02 * rt00])
+    else:
+        npa = np.array([s[0, 2] + e01 * rt11, s[1, 2] + rt00, s[2, 2]])
+        npb = np.array([s[0, 2] - e01 * rt11, s[1, 2] - rt00, s[2, 2]])
+    trace = s[0, 0] + s[1, 1] + s[2, 2]
+    v = 2.0 * np.sqrt(1 + trace - m00 - m11 - m22)
+    r = np.sqrt(2 + trace + v)
+    n_t = np.sqrt(2 + trace - v)
+    na = npa / np.linalg.norm(npa)
+    nb = npb / np.linalg.norm(npb)
+    esii_r = _sign(s[idx, idx]) * r
+    ta_star = 0.5 * n_t * (esii_r * nb - n_t * na)
+    tb_star = 0.5 * n_t * (esii_r * na - n_t * nb)
+    ra = _rotation_from(hn, ta_star, na, v)
+    rb = _rotation_from(hn, tb_star, nb, v)
+    ta, tb = ra @ ta_star, rb @ tb_star
+    return [(ra, ta, na), (ra, -ta, -na), (rb, tb, nb), (rb, -tb, -nb)]
+
+
 def _check_rt(r, t, p1n, p2n, inl, th2=16.0):
     """Count cheirality+parallax-consistent points for one (R, t)."""
     T1 = SE3()
@@ -158,17 +217,11 @@ class TwoViewReconstruction:
         candidates = []
         if ratio_h > 0.40 and best_h is not None:  # reference RH>0.40 gate
             # homography path: OpenCV decomposition (4 candidates)
-            try:
-                import cv2
-
-                _, rs, ts, _ = cv2.decomposeHomographyMat(best_h, k)
-                for r, t in zip(rs, ts):
-                    tn = t.ravel()
-                    if np.linalg.norm(tn) > 1e-9:
-                        tn = tn / np.linalg.norm(tn)
-                    candidates.append((project_to_so3(r), tn, best_h_inl))
-            except ImportError:
-                pass
+            for r, t, _ in decompose_homography(best_h, k):
+                tn = t.ravel()
+                if np.linalg.norm(tn) > 1e-9:
+                    tn = tn / np.linalg.norm(tn)
+                candidates.append((project_to_so3(r), tn, best_h_inl))
         if not candidates and best_f is not None:
             e = k.T @ best_f @ k
             u, _, vt = np.linalg.svd(e)

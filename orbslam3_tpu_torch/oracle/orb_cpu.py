@@ -122,15 +122,27 @@ def _linear_coeffs(dst_n: int, src_n: int) -> tuple[np.ndarray, np.ndarray, np.n
     return s, a0, a1
 
 
+def _row_coeffs(dst_n: int, src_n: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The vertical pass's (first source row, 11-bit taps): cv2 clips the
+    two ROWS into the image but keeps the fraction, so a row past an edge
+    (upscaling) still weighs the edge row twice (its two truncations)."""
+    d = np.arange(dst_n)
+    f = ((d + 0.5) * (src_n / dst_n) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s).astype(np.float32)
+    return s, cv_round((np.float32(1.0) - f) * np.float32(2048.0)), cv_round(f * np.float32(2048.0))
+
+
 def resize_linear_u8(src: np.ndarray, dh: int, dw: int) -> np.ndarray:
     """cv2.resize(src, (dw, dh), INTER_LINEAR) for uint8, bit-exact."""
     sh, sw = src.shape
     sx, ax0, ax1 = _linear_coeffs(dw, sw)
-    sy, by0, by1 = _linear_coeffs(dh, sh)
+    sy, by0, by1 = _row_coeffs(dh, sh)
     s = src.astype(np.int64)
     sx1 = np.minimum(sx + 1, sw - 1)
     rows = s[:, sx] * ax0 + s[:, sx1] * ax1  # horizontal pass, 8u*11bit -> int
-    sy1 = np.minimum(sy + 1, sh - 1)
+    sy1 = np.clip(sy + 1, 0, sh - 1)
+    sy = np.clip(sy, 0, sh - 1)
     r0 = rows[sy, :]
     r1 = rows[sy1, :]
     out = (((by0[:, None] * (r0 >> 4)) >> 16) + ((by1[:, None] * (r1 >> 4)) >> 16) + 2) >> 2

@@ -24,7 +24,7 @@ from orbslam3_tpu_torch._device import resolve_device
 from orbslam3_tpu_torch.frontend import fisheye
 from orbslam3_tpu_torch.frontend.stereo_frame import front_end, unpack_host_features
 from orbslam3_tpu_torch.ops.extractor import FusedKernels, feature_extractor, pack_features
-from orbslam3_tpu_torch.oracle.orb_cpu import PyramidParams
+from orbslam3_tpu_torch.oracle.orb_cpu import PyramidParams, resize_linear_u8
 from orbslam3_tpu_torch.slam.frame import Frame
 from orbslam3_tpu_torch.slam.local_mapping import LocalMapping
 from orbslam3_tpu_torch.slam.map import Atlas
@@ -206,10 +206,11 @@ class System:
 
     # ------------------------------------------------------------------
     def _preprocess_stereo(self, img_l: np.ndarray, img_r: np.ndarray):
-        """Rectify (unrectified pinhole stereo) or resize raw inputs before
-        extraction — System::TrackStereo, src/System.cc:253-263."""
+        """Rectify (unrectified pinhole stereo, on `self.device`) or resize
+        raw inputs before extraction — System::TrackStereo,
+        src/System.cc:253-263."""
         if self.rectifier is not None:
-            return self.rectifier.rectify(img_l, img_r)
+            return self.rectifier.rectify(img_l, img_r, self.device)
         if self.resize_to is not None:
             img_l = self._resize(img_l, self.resize_to)
             img_r = self._resize(img_r, self.resize_to)
@@ -217,21 +218,9 @@ class System:
 
     @staticmethod
     def _resize(img: np.ndarray, size: tuple) -> np.ndarray:
-        try:
-            import cv2
-
-            return cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)
-        except ImportError:
-            from orbslam3_tpu_torch.frontend.rectify import remap_bilinear
-
-            w, h = size
-            sh, sw = img.shape[:2]
-            mapx = ((np.arange(w, dtype=np.float32) + 0.5) * sw / w - 0.5)[None, :]
-            mapy = ((np.arange(h, dtype=np.float32) + 0.5) * sh / h - 0.5)[:, None]
-            return remap_bilinear(
-                img, np.broadcast_to(mapx, (h, w)).copy(),
-                np.broadcast_to(mapy, (h, w)).copy(),
-            )
+        """cv2.resize(img, size, INTER_LINEAR), bit for bit, in numpy."""
+        w, h = size
+        return resize_linear_u8(img, h, w)
 
     def _front_end(self, hw: tuple):
         return front_end(
@@ -239,7 +228,17 @@ class System:
             str(self.device), self.fused,
         )
 
-    def _pair(self, img_l: np.ndarray, img_r: np.ndarray) -> torch.Tensor:
+    def _pair(self, img_l, img_r) -> torch.Tensor:
+        """(2, H, W) uint8 on `self.device` from two numpy images, or from
+        the two tensors the rectifier left there."""
+        if isinstance(img_l, torch.Tensor):
+            if self.device.type == "cuda":
+                # made on the stream that was current then; this one may be
+                # the side stream, so their memory must outlive its reads
+                stream = torch.cuda.current_stream(self.device)
+                img_l.record_stream(stream)
+                img_r.record_stream(stream)
+            return torch.stack([img_l, img_r])
         pair = torch.from_numpy(np.ascontiguousarray(np.stack([img_l, img_r])))
         return pair.to(self.device, non_blocking=True)
 
@@ -360,7 +359,7 @@ class System:
         with trace_range("2_Track", self.device):
             pose = self.tracker.track_frame(frame)
         if self.viewer is not None:
-            self.viewer.update(img_l)
+            self.viewer.update(np.asarray(img_l.cpu()) if isinstance(img_l, torch.Tensor) else img_l)
         return pose
 
     # --- frame pipelining (the reference's intended async design,
@@ -417,14 +416,13 @@ class System:
         pre = [self._preprocess_stereo(il, ir) for il, ir in pairs]
         shape = pre[0][0].shape
         fe = self._front_end(shape)
-        batch = torch.from_numpy(np.stack([np.stack(p) for p in pre]))
         if self.device.type != "cuda":
-            fetch = _SharedBatchFetch(fe.batch(batch))
+            fetch = _SharedBatchFetch(fe.batch(torch.stack([self._pair(*p) for p in pre])))
         else:
             with self._on_side_stream():
                 start = torch.cuda.Event(enable_timing=True)
                 start.record()
-                packed = fe.batch(batch.to(self.device, non_blocking=True))
+                packed = fe.batch(torch.stack([self._pair(*p) for p in pre]))
                 host, done = self._to_pinned(packed)
             fetch = _SharedBatchFetch(host, done, packed, (start, len(pre)))
         return [(_BatchRow(fetch, i), None, None, p[0].shape) for i, p in enumerate(pre)]
@@ -609,11 +607,12 @@ class System:
         sequential: bool = True,
         *,
         device: str | torch.device = "cuda",
+        fused: FusedKernels = FusedKernels(),
     ) -> "System":
         """Reference-ctor parity: System(vocFile, settingsFile, sensor,
         bUseViewer) (include/System.h:105).  Vocabulary files ending in
         .txt load the DBoW2 text format (ORBvoc.txt), .npz the native one.
-        `device` as in the constructor."""
+        `device` and `fused` as in the constructor."""
         from orbslam3_tpu_torch.utils.settings import load_settings
 
         st = load_settings(settings_file, sensor)
@@ -693,6 +692,7 @@ class System:
             resize_to=resize_to,
             **fisheye_kwargs,
             device=device,
+            fused=fused,
         )
         sysm.settings = st
         sysm.depth_map_factor = st.depth_map_factor

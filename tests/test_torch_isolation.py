@@ -8,7 +8,13 @@ function.  A subprocess whose `sys.meta_path` refuses `jax` and
 RGB-D frames, the device local-map matcher (DEVICE_MATCH_MIN lowered),
 `trace_range` and `device_trace`, the trajectory savers, an atlas saved
 by the port and one saved by the reference, both loaded by the port, the
-stereo fisheye path and batched prefetch.
+stereo fisheye path and batched prefetch, and every module users launch
+(the examples, the entry hook, the bench, the ATE tool and the soak).
+
+No module of the port imports cv2 or PIL, except the two that draw
+(synth's test textures, the viewer), neither on a tracking path; the
+EuRoC driver runs on a distorted rig in a process that refuses jax, the
+JAX package, cv2 and PIL.
 """
 
 import ast
@@ -153,6 +159,14 @@ _SCRIPT = textwrap.dedent(
         batch.track_stereo_prefetched(handle, timestamp=k / 20.0)
     batch.shutdown()
 
+    # what users launch imports without them too
+    import orbslam3_tpu_torch.bench, orbslam3_tpu_torch.entry
+    import orbslam3_tpu_torch.examples.demo_extract, orbslam3_tpu_torch.examples.run_euroc
+    import orbslam3_tpu_torch.examples.run_kitti, orbslam3_tpu_torch.examples.run_multi_robot
+    import orbslam3_tpu_torch.examples.run_synth, orbslam3_tpu_torch.examples.run_tum_rgbd
+    import orbslam3_tpu_torch.examples.run_tumvi, orbslam3_tpu_torch.tools.evaluate_ate
+    import orbslam3_tpu_torch.tools.soak
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu"))
     assert not leaked, leaked
     print("ISOLATED_OK")
@@ -190,6 +204,98 @@ def test_port_runs_with_jax_and_the_reference_refused(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ISOLATED_OK" in proc.stdout
+
+
+# the only port modules that may import cv2, and never on a tracking path:
+# synth draws its test textures' polygons with cv2.fillPoly (the
+# reference's textures, for parity), the viewer draws keypoints and text
+CV2_DRAWING = ("orbslam3_tpu_torch/utils/synth.py", "orbslam3_tpu_torch/utils/viewer.py")
+# what users launch, and the modules that replaced cv2 calls
+DRIVER_SURFACE = (
+    "orbslam3_tpu_torch/bench.py", "orbslam3_tpu_torch/entry.py",
+    "orbslam3_tpu_torch/examples/demo_extract.py", "orbslam3_tpu_torch/examples/run_euroc.py",
+    "orbslam3_tpu_torch/examples/run_kitti.py", "orbslam3_tpu_torch/examples/run_multi_robot.py",
+    "orbslam3_tpu_torch/examples/run_synth.py", "orbslam3_tpu_torch/examples/run_tum_rgbd.py",
+    "orbslam3_tpu_torch/examples/run_tumvi.py", "orbslam3_tpu_torch/tools/evaluate_ate.py",
+    "orbslam3_tpu_torch/tools/soak.py", "orbslam3_tpu_torch/utils/imageio.py",
+    "orbslam3_tpu_torch/frontend/rectify.py", "orbslam3_tpu_torch/optim/two_view.py",
+    "orbslam3_tpu_torch/slam/system.py",
+)
+
+
+def _imports(path: str) -> list:
+    """(line, module) of every import in a source, function bodies included."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [(node.lineno, a.name) for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            out.append((node.lineno, node.module))
+    return out
+
+
+def test_no_module_of_the_port_imports_cv2_or_pil():
+    sources = {os.path.relpath(p, REPO): p for p in _port_sources()}
+    assert set(DRIVER_SURFACE) <= set(sources)
+    found = [
+        f"{rel}:{line} {name}"
+        for rel, path in sorted(sources.items()) if rel not in CV2_DRAWING
+        for line, name in _imports(path) if name.split(".")[0] in ("cv2", "PIL")
+    ]
+    assert not found, found
+
+
+_DRIVER_SCRIPT = textwrap.dedent(
+    """
+    import os, sys
+
+
+    class _Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu", "cv2", "PIL"):
+                raise ImportError("the port must not import " + name)
+            return None
+
+
+    sys.meta_path.insert(0, _Refuse())
+    seq, settings, out, n = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+    from orbslam3_tpu_torch.examples import run_euroc
+
+    slam = run_euroc.main(seq, settings, None, "stereo", device="cpu", out_dir=out)
+    assert slam.rectifier is not None  # the distorted rig, rectified without cv2
+    with open(os.path.join(out, "CameraTrajectory.txt")) as f:
+        assert len([line for line in f if line.strip()]) == n
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu", "cv2", "PIL"))
+    assert not leaked, leaked
+    print("DRIVER_OK")
+    """
+)
+
+
+def test_euroc_driver_runs_with_cv2_and_pil_refused(tmp_path):
+    """The EuRoC driver on a distorted rig's ASL tree, in a process that
+    refuses jax, the JAX package, cv2 and PIL: what the card's machine
+    has installed is enough."""
+    from orbslam3_tpu.utils.synth import stereo_sequence
+
+    from test_dataset_drivers import _euroc_yaml, _write_euroc_tree
+    from test_rectified_slam import BASELINE, CAM_L, CAM_R, H, T_RL, W
+
+    n = 3
+    frames = stereo_sequence(n, CAM_L, BASELINE, H, W, seed=3, camera_r=CAM_R, T_rl=T_RL)
+    seq, settings = str(tmp_path / "mav0"), str(tmp_path / "EuRoC.yaml")
+    _write_euroc_tree(seq, frames)
+    _euroc_yaml(settings)
+    proc = subprocess.run(
+        [sys.executable, "-c", _DRIVER_SCRIPT, seq, settings, str(tmp_path), str(n)],
+        capture_output=True, text=True, cwd=REPO, timeout=300,
+        env=dict(os.environ, PYTHONPATH=REPO),
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "DRIVER_OK" in proc.stdout
 
 
 def test_blocked_name_rule():
