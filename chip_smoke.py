@@ -24,11 +24,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
   4. the stereo tracking path through its entry points: System.track_stereo
      over a 30-frame synthetic sequence, save_trajectory_tum, shutdown —
      every frame tracked, ATE RMSE under 1 cm, one B1 and two B2 launches
-     per frame, and no JAX in the process;
+     per frame, and no JAX in the process (each frame's front-end is one
+     replay of its CUDA graph, captured at frame 0; the launches are
+     counted under replay, as in every later phase);
   5. the whole front-end on the card against the same code on the CPU;
   6. torch.profiler: the front-end's device-busy time per frame by device
-     op (full table in chiprun_out/chip_smoke_profile.txt), and the
-     device-busy share of whole track_stereo frames;
+     op, eager (op by op) and graphed side by side (full tables in
+     chiprun_out/chip_smoke_profile.txt), and the device-busy share of
+     whole track_stereo frames;
   7. the fused kernels B3, B4 and both modes of B5 against their plain
      twins on the card, bit-exact, at the shapes of the mono / RGB-D path
      (detection composites of one and two cameras, 1000 / 2000 / 5000
@@ -53,7 +56,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
  10. fused against default on one frame: the stereo front-end's and the
      mono extractor's packed outputs equal column for column;
  11. torch.profiler: the stereo and mono front-ends' device-busy time and
-     device ops per frame, default and fused side by side;
+     device ops per frame, default and fused, eager and graphed, side by
+     side;
  12. the A/B harness of the FAST-score variants T1-T4
      (orbslam3_tpu_torch.tools.bench_fast_variants): its check pass, every
      case of the four TPU harnesses on the 2112x736 harness image and the
@@ -101,7 +105,22 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      frame, ATE under 2 cm, one B3, one B4 and one B5 rBRIEF launch a
      frame;
  19. the entry hook's step on the card against the CPU (integers equal),
-     and the bench's measurement at 16 frames, its headline printed.
+     and the bench's measurement at 16 frames, its headline printed (the
+     graphed front-end) beside the eager stream window;
+ 20. the frame graphs (utils/frame_graph.py): each program the System
+     replays against its eager program, bit for bit with the same launches
+     a frame, on three inputs or more (stereo default and fused, non-flat
+     stereo, phase 14's fisheye pair block, mono's two extractors, the
+     RGB-D extractor on RGB-D images, the default mono extractor), each
+     graph's capture time and pool size; every row of a batch equal to a
+     single frame; the stream window per frame eager and graphed over
+     phase 4's frames (two turns each) and a batch's per frame; the
+     30-frame track_stereo wall eager and graphed (two turns each, phase
+     4's poses bit for bit in every run); prefetch_stereo on the side
+     stream interleaved with track_stereo on the current one (every
+     prefetched block equal to eager, phase 4's poses); and a program with
+     an .item() inside whose capture raises at each call, with nothing run
+     in its place.
 Phase 1 also prints whether cv2 is importable (the port needs none).
 
 Phase 2 also requires the port's native host library to build
@@ -138,6 +157,7 @@ from orbslam3_tpu_torch.utils.device_time import (
     cuda_ms,
     device_ms,
     device_profile,
+    window_ms,
 )
 
 H, W = 480, 752
@@ -288,8 +308,9 @@ def compare_card_cpu(label: str, on_card: np.ndarray, on_cpu: np.ndarray, n: int
             f"(max {int(bits.max(initial=0))} bits)")
 
 
-def phase_fisheye(card: str, port, bench) -> None:
-    """Phase 14: the fisheye-inertial path at the TUM-VI configuration."""
+def phase_fisheye(card: str, port, bench) -> tuple:
+    """Phase 14: the fisheye-inertial path at the TUM-VI configuration.
+    Returns the System's front-end and three of its pairs on the card."""
     from orbslam3_tpu_torch.cameras.models import KannalaBrandt8
     from orbslam3_tpu_torch.frontend import fisheye
     from orbslam3_tpu_torch.slam.system import FRONT_END_STREAM_TAG, System
@@ -364,6 +385,8 @@ def phase_fisheye(card: str, port, bench) -> None:
     require(mono_fused == mono_card and on_fused.shape == on_card.shape and not cols,
             f"fisheye fused != default in columns {cols}")
     phase("14 extract_fisheye_pair under FusedKernels(True, True, True) equal to the default")
+    pairs = [torch.from_numpy(np.stack(seq[k][:2])).cuda() for k in (0, N_FISHEYE // 2, N_FISHEYE - 1)]
+    return fis._front_end(seq[0][0].shape), pairs
 
 
 def phase_batch(frames, poses, stats, fe_ms, card: str, port, bench) -> None:
@@ -652,8 +675,156 @@ def phase_entry_and_bench(card: str) -> None:
           f"matched; integer columns equal to the CPU's")
     r = port_bench.measure(BENCH_FRAMES, warmup=3, batch=EUROC_BATCH)
     phase(f"19 bench at {BENCH_FRAMES} frames on {card}: stream window median "
-          f"{r['window_ms']:.4f} ms/frame, batched ({EUROC_BATCH}) {r['batch_ms']:.4f} ms/frame")
+          f"{r['window_ms']:.4f} ms/frame graphed, {r['eager_window_ms']:.4f} eager, batched "
+          f"({EUROC_BATCH}) {r['batch_ms']:.4f} ms/frame")
     phase("19 bench headline: " + json.dumps(port_bench.final_line(r["wall_ms"])))
+
+
+def phase_graphs(frames, poses, rgbd_frames, fisheye_program, card: str, port, bench) -> None:
+    """Phase 20: each frame program's CUDA graph against its eager program
+    on the card, and what the graphs do to the stream window and the wall."""
+    import dataclasses
+
+    from orbslam3_tpu_torch.frontend import stereo_frame as sf
+    from orbslam3_tpu_torch.ops import extractor as ex
+    from orbslam3_tpu_torch.slam.system import FRONT_END_STREAM_TAG, System
+    from orbslam3_tpu_torch.utils import launches
+    from orbslam3_tpu_torch.utils.frame_graph import FrameGraph
+
+    dev = torch.device("cuda")
+    params = port.PyramidParams()
+    fused = port.FusedKernels(True, True, True)
+    mbf = FX * BASELINE
+    pairs = [torch.from_numpy(np.stack(f[:2])).to(dev) for f in frames]
+    h, w = NON_FLAT_HW
+    cam_nf = port.Pinhole([150.0, 150.0, w / 2, h / 2])
+    nf_pairs = [torch.from_numpy(np.stack(f[:2])).to(dev)
+                for f in port.stereo_sequence(3, cam_nf, BASELINE, h, w, seed=SEED)]
+    fe = sf.front_end(params, (H, W), mbf, FX, "cuda")
+    fe_fused = sf.front_end(params, (H, W), mbf, FX, "cuda", fused)
+    fe_nf = sf.front_end(params, NON_FLAT_HW, 150.0 * BASELINE, 150.0, "cuda")
+    fe_fish, fish_pairs = fisheye_program
+    ini = dataclasses.replace(params, n_features=5 * params.n_features)
+    x_ini = ex.feature_extractor(ini, (H, W), fused, "cuda")  # phase 8's init extractor
+    x_one = ex.feature_extractor(params, (H, W), fused, "cuda")  # phases 8 and 9
+    x_default = ex.feature_extractor(params, (H, W), port.FusedKernels(), "cuda")
+    rgbd_imgs = [torch.from_numpy(np.ascontiguousarray(f[0])).to(dev) for f in rgbd_frames[:3]]
+    programs = (
+        ("stereo default", fe, "packed", fe, fe.eager, pairs[:3]),
+        ("stereo fused", fe_fused, "packed", fe_fused, fe_fused.eager, pairs[:3]),
+        ("non-flat stereo 120x160", fe_nf, "packed", fe_nf, fe_nf.eager, nf_pairs),
+        ("fisheye pair block 512x512", fe_fish, "pair_block", fe_fish.pair_block,
+         fe_fish.pair_block_eager, fish_pairs),
+        ("mono init extractor (5000, fused)", x_ini, "packed", x_ini.packed, x_ini.eager,
+         [p[0] for p in pairs[:3]]),
+        ("mono / RGB-D extractor (1000, fused)", x_one, "packed", x_one.packed, x_one.eager,
+         [p[0] for p in pairs[:3]] + rgbd_imgs),
+        ("mono extractor (1000, default)", x_default, "packed", x_default.packed,
+         x_default.eager, [p[0] for p in pairs[:3]]),
+    )
+    pool_total = 0
+    for label, module, name, graphed, eager, inputs in programs:
+        for x in inputs:
+            with launches.recorded() as by_graph:
+                got = graphed(x)
+            with launches.recorded() as by_eager:
+                want = eager(x)
+            require(torch.equal(got, want), f"20 {label}: graphed != eager")
+            require(by_graph == by_eager,
+                    f"20 {label}: launches graphed {by_graph} != eager {by_eager}")
+        g = module.graphs[name]
+        pool_total += g.pool_bytes
+        phase(f"20 {label}: graphed == eager bit for bit on {len(inputs)} inputs, launches a "
+              f"frame {by_graph}; capture {g.capture_ms:.1f} ms (first call's eager run "
+              f"{g.warmup_ms:.1f} ms), pool {g.pool_bytes / 2**20:.1f} MiB, {g.replays} replays")
+    phase(f"20 the graphs' pools together {pool_total / 2**20:.1f} MiB; the card's reserved "
+          f"memory {torch.cuda.memory_reserved() / 2**20:.1f} MiB")
+
+    # every batch row equal to a single frame
+    rows = fe.batch(torch.stack(pairs[:BATCH]))
+    for b in range(BATCH):
+        require(torch.equal(rows[b], fe.eager(pairs[b])), f"20 batch row {b} != a single frame")
+    phase(f"20 StereoFrontEnd.batch: every one of {BATCH} rows == the eager single frame")
+
+    # the stream window per frame over phase 4's frames, in turns
+    turns = {"eager": [], "graphed": []}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        program = fe.eager if mode == "eager" else fe
+        turns[mode] += [window_ms(lambda: program(p)) for p in pairs]
+    batches = [torch.stack(pairs[i : i + BATCH]) for i in range(0, N_FRAMES - BATCH + 1, BATCH)]
+    batch_windows = [window_ms(lambda: fe.batch(b)) for b in batches]
+    phase(f"20 stereo front-end stream window per frame on {card}, {N_FRAMES} frames x 2 turns: "
+          f"eager median {statistics.median(turns['eager']):.4f} ms, graphed median "
+          f"{statistics.median(turns['graphed']):.4f} ms; batch of {BATCH} "
+          f"{statistics.median(batch_windows) / BATCH:.4f} ms per frame")
+
+    # track_stereo over the 30 frames, eager and graphed in turns: phase 4's
+    # poses bit for bit each time
+    camera = port.Pinhole([FX, FX, W / 2, H / 2])
+    walls = {"eager": [], "graphed": []}
+    windows = {"eager": [], "graphed": []}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        run = System(camera, mbf, params, device="cuda")
+        if mode == "eager":
+            run._front_end = lambda hw: fe.eager  # every frame op by op
+        bench.records.pop(FRONT_END_STREAM_TAG, None)
+        got = []
+        for k, (img_l, img_r, _) in enumerate(frames):
+            t0 = time.perf_counter()
+            got.append(run.track_stereo(img_l, img_r, timestamp=k / 20.0))
+            walls[mode].append((time.perf_counter() - t0) * 1e3)
+        run.shutdown()
+        windows[mode] += bench.records[FRONT_END_STREAM_TAG][1:]
+        walls[mode] = walls[mode][:-N_FRAMES] + walls[mode][-N_FRAMES + 1 :]  # frame 0 out
+        require(all(np.array_equal(a.matrix(), b.matrix()) for a, b in zip(got, poses))
+                and len(got) == len(poses), f"20 track_stereo {mode}: poses differ from phase 4's")
+    phase(f"20 track_stereo {N_FRAMES} frames x 2 turns on {card}, after frame 0: wall median "
+          f"eager {statistics.median(walls['eager']):.4f} ms, graphed "
+          f"{statistics.median(walls['graphed']):.4f} ms; front-end stream window median eager "
+          f"{statistics.median(windows['eager']):.4f} ms, graphed "
+          f"{statistics.median(windows['graphed']):.4f} ms; phase 4's poses bit for bit in "
+          f"every run")
+
+    # prefetch on the side stream interleaved with track_stereo on the
+    # current one, both replaying one graph
+    inter = System(camera, mbf, params, device="cuda")
+    got = []
+    for k in range(0, N_FRAMES, 2):
+        ahead = inter.prefetch_stereo(frames[k + 1][0], frames[k + 1][1])
+        got.append(inter.track_stereo(frames[k][0], frames[k][1], timestamp=k / 20.0))
+        host, done, _, _ = ahead
+        done.synchronize()
+        require(torch.equal(host, fe.eager(pairs[k + 1]).cpu()),
+                f"20 prefetch of frame {k + 1} != the eager program")
+        got.append(inter.track_stereo_prefetched(ahead, timestamp=(k + 1) / 20.0))
+    inter.shutdown()
+    require(len(got) == N_FRAMES and all(np.array_equal(a.matrix(), b.matrix())
+                                         for a, b in zip(got, poses)),
+            "20 prefetch interleaved with track_stereo: poses differ from phase 4's")
+    phase(f"20 prefetch_stereo (side stream) interleaved with track_stereo over {N_FRAMES} "
+          f"frames: every prefetched block == eager, phase 4's poses bit for bit")
+
+    # no fallback: a program with a host read fails its capture, twice
+    calls = []
+
+    def host_read(x):
+        calls.append(1)
+        return x * int((x > 0).sum().item())
+
+    bad = FrameGraph(host_read, dev)
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    for _ in range(2):
+        try:
+            bad(x)
+        except RuntimeError as e:
+            msg = str(e).splitlines()[0][:100]
+        else:
+            raise AssertionError("20 a capture with .item() inside did not raise")
+        require(bad.graph is None, "20 a failed capture left a graph")
+    require(len(calls) == 4, f"20 expected two eager runs and two captures, got {len(calls)} calls")
+    require(torch.equal(fe(pairs[0]), fe.eager(pairs[0])), "20 the card after a failed capture")
+    phase(f"20 a program with .item() inside: the capture raised at each of two calls "
+          f"({msg}), no graph kept, nothing run in its place; the card still replays")
 
 
 def main() -> int:
@@ -876,22 +1047,23 @@ def main() -> int:
     require(min(agree) >= 0.99, "u_right/depth agree on < 99 % of valid slots")
 
     # phase 6: where the time goes (steady state, torch.profiler) ---------
-    window, ops, n_ops = device_profile(lambda: fe(pair), reps=5)
-    busy = sum(ops.values())
-    top = sorted(ops.items(), key=lambda kv: -kv[1])
-    if not ops:
-        phase(NO_TRACE)
-    phase(f"6 front-end device busy (profiler) {busy:.4f} ms/frame in a stream window of "
-          f"{window:.4f} ms/frame ({100 * busy / window:.1f} % busy), "
-          f"{n_ops:.0f} device ops/frame")
-    for key, ms in top[:8]:
-        phase(f"6   {ms:.4f} ms/frame  {key[:100]}")
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w") as f:
-        f.write(f"# {card}; front-end device ms per frame by op, 752x480 stereo\n")
-        for key, ms in top:
-            f.write(f"{ms:.6f}\t{key}\n")
+        for mode, fn in (("eager", lambda: fe.eager(pair)), ("graphed", lambda: fe(pair))):
+            window, ops, n_ops = device_profile(fn, reps=5)
+            busy = sum(ops.values())
+            top = sorted(ops.items(), key=lambda kv: -kv[1])
+            if not ops:
+                phase(NO_TRACE)
+            phase(f"6 front-end {mode}: device busy (profiler) {busy:.4f} ms/frame in a stream "
+                  f"window of {window:.4f} ms/frame ({100 * busy / window:.1f} % busy), "
+                  f"{n_ops:.0f} device ops/frame")
+            for key, ms in top[:8]:
+                phase(f"6   {mode} {ms:.4f} ms/frame  {key[:100]}")
+            f.write(f"# {card}; front-end {mode} device ms per frame by op, 752x480 stereo\n")
+            for key, ms in top:
+                f.write(f"{ms:.6f}\t{key}\n")
     # whole track_stereo frames after initialisation, host tracking included
     sys2 = System(camera, mbf, params, device="cuda")
     sys2.track_stereo(frames[0][0], frames[0][1], timestamp=0.0)
@@ -1106,12 +1278,9 @@ def main() -> int:
     fe_fused = sf.front_end(params, (H, W), mbf, FX, "cuda", fused)
     fe_mono_fused = ex.feature_extractor(params, (H, W), fused, "cuda")
 
-    def mono_packed(extractor):
-        return ex.pack_features(extractor(pair[0]))
-
     for label, a, b in (
         ("stereo front-end", fe(pair), fe_fused(pair)),
-        ("mono extractor", mono_packed(fe_mono), mono_packed(fe_mono_fused)),
+        ("mono extractor", fe_mono.packed(pair[0]), fe_mono_fused.packed(pair[0])),
     ):
         a, b = a.cpu().numpy(), b.cpu().numpy()
         cols = [c for c in range(a.shape[1]) if not np.array_equal(a[:, c], b[:, c])]
@@ -1119,19 +1288,24 @@ def main() -> int:
               f"valid, columns that differ: {cols}")
         require(a.shape == b.shape and not cols, f"{label}: fused != default in columns {cols}")
 
-    # phase 11: device time of the front-ends, default and fused -----------
-    for label, fns in (
-        ("stereo front-end", (lambda: fe(pair), lambda: fe_fused(pair))),
-        ("mono extractor", (lambda: fe_mono(pair[0]), lambda: fe_mono_fused(pair[0]))),
+    # phase 11: device time of the front-ends, default and fused, eager and
+    # graphed side by side
+    for label, module, x in (
+        ("stereo front-end", (fe, fe_fused), pair),
+        ("mono extractor", (fe_mono, fe_mono_fused), pair[0]),
     ):
-        for cfg, fn in zip(("default", "fused"), fns):
-            window, ops, n_ops = device_profile(fn, reps=5)
-            busy = sum(ops.values())
-            if not ops:
-                phase(NO_TRACE)
-            phase(f"11 {label} {cfg}: device busy (profiler) {busy:.4f} ms/frame in a stream "
-                  f"window of {window:.4f} ms/frame ({100 * busy / window:.1f} % busy), "
-                  f"{n_ops:.0f} device ops/frame")
+        for cfg, m in zip(("default", "fused"), module):
+            graphed = m.packed if isinstance(m, ex.FeatureExtractor) else m
+            cols = []
+            for mode, fn in (("eager", lambda: m.eager(x)), ("graphed", lambda: graphed(x))):
+                window, ops, n_ops = device_profile(fn, reps=5)
+                busy = sum(ops.values())
+                if not ops:
+                    phase(NO_TRACE)
+                cols.append(f"{mode} busy {busy:.4f} ms/frame in a stream window of "
+                            f"{window:.4f} ({100 * busy / window:.1f} % busy), "
+                            f"{n_ops:.0f} device ops/frame")
+            phase(f"11 {label} {cfg} (profiler): " + " | ".join(cols))
     require("jax" not in sys.modules, "the port imported JAX")
 
     # phase 12: the A/B harness of the FAST-score variants T1-T4 -----------
@@ -1195,12 +1369,13 @@ def main() -> int:
           f"{int(on_cpu[2].sum())} matched); device time {card_ms:.4f} ms, CPU wall "
           f"{cpu_ms:.4f} ms")
 
-    phase_fisheye(card, port, bench)
+    fisheye_program = phase_fisheye(card, port, bench)
     phase_batch(frames, est, stereo_stats, fe_ms, card, port, bench)
     phase_non_flat(port)
     phase_euroc(card, port, bench)
     phase_tum_rgbd(card, port, bench)
     phase_entry_and_bench(card)
+    phase_graphs(frames, est, rgbd_frames, fisheye_program, card, port, bench)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu"))
     phase(f"modules of JAX or the JAX package loaded: {leaked or 'none'}")

@@ -14,14 +14,17 @@ MH01 stereo (ExecMean.txt:6, see BASELINE.md); `vs_baseline` is
 Input: stereo pairs made by `make_frame` (two 752x480 frames each), 8
 levels, 1000 features a camera, on the card before timing starts.  The
 headline is the median host wall of one frame's front-end
-(`StereoFrontEnd.forward`) plus the copy of its (K, 40) block to the host,
-after warm-up, the card synchronised before each frame.  Earlier lines
-carry the stream window of the same calls between CUDA events (the copy
-excluded), the batched-throughput figure per frame
-(`StereoFrontEnd.batch` over B pairs plus one copy, divided by B), and the
-reference GPU fork's extraction + stereo matching (38.53 + 7.74 ms) beside
-the headline.  With no card, or on any failure, the final line carries
-"value": null and the exit code is not 0.
+(`StereoFrontEnd.forward`: one replay of the front-end's CUDA graph, what
+users get) plus the copy of its (K, 40) block to the host, after warm-up
+(the first call captures the graph), the card synchronised before each
+frame.  Earlier lines carry the stream window of the same calls between
+CUDA events (the copy excluded), the stream window of the same program
+run op by op (`StereoFrontEnd.eager`) on the same pairs, the
+batched-throughput figure per frame (`StereoFrontEnd.batch` over B pairs
+plus one copy, divided by B), and the reference GPU fork's extraction +
+stereo matching (38.53 + 7.74 ms) beside the headline.  With no card, or
+on any failure, the final line carries "value": null and the exit code
+is not 0.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ def measure(n_frames: int = 64, warmup: int = 5, batch: int = 8) -> dict:
     from orbslam3_tpu_torch._device import resolve_device
     from orbslam3_tpu_torch.frontend import stereo_frame as sf
     from orbslam3_tpu_torch.oracle.orb_cpu import PyramidParams
+    from orbslam3_tpu_torch.utils.device_time import window_ms
 
     dev = resolve_device("cuda")
     params = PyramidParams(n_features=1000)
@@ -85,6 +89,7 @@ def measure(n_frames: int = 64, warmup: int = 5, batch: int = 8) -> dict:
         window.append(start.elapsed_time(end))
     if not np.isfinite(host.numpy()).all():
         raise RuntimeError("the front-end returned values that are not finite")
+    eager = [window_ms(lambda: fe.eager(pairs[i])) for i in range(n_frames)]
 
     per_frame = []
     for b0 in range(0, n_frames - batch + 1, batch):
@@ -94,6 +99,7 @@ def measure(n_frames: int = 64, warmup: int = 5, batch: int = 8) -> dict:
         per_frame.append((time.perf_counter() - t0) * 1e3 / batch)
     return dict(
         wall_ms=statistics.median(wall), window_ms=statistics.median(window),
+        eager_window_ms=statistics.median(eager),
         batch_ms=statistics.median(per_frame) if per_frame else None,
         frames=n_frames, batch=batch, keypoints=int(host.shape[0]),
     )
@@ -123,7 +129,14 @@ def main(argv=None) -> int:
         print(json.dumps({
             "metric": "stereo_front_end_stream_window_ms_per_frame",
             "value": r["window_ms"], "unit": "ms", "device": card,
-            "note": "median CUDA-event window around StereoFrontEnd.forward, copy excluded",
+            "note": "median CUDA-event window around StereoFrontEnd.forward (one graph "
+                    "replay), copy excluded",
+        }), flush=True)
+        print(json.dumps({
+            "metric": "stereo_front_end_eager_stream_window_ms_per_frame",
+            "value": r["eager_window_ms"], "unit": "ms", "device": card,
+            "note": "median CUDA-event window around StereoFrontEnd.eager (the same program "
+                    "op by op) on the same pairs",
         }), flush=True)
         if r["batch_ms"] is not None:
             print(json.dumps({

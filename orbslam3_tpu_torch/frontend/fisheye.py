@@ -12,9 +12,10 @@ KannalaBrandt8::TriangulateMatches, keeping pairs with positive depth and
 bounded reprojection error.
 
 Both cameras run through the stereo front-end on one torch device
-(`StereoFrontEnd.extract`: one detection pass over both cameras' crops,
+(`StereoFrontEnd.pair_block`: one detection pass over both cameras' crops,
 one B2 launch for both cameras' orientation and BRIEF windows, or B3, B4
-and B5's rBRIEF mode under `FusedKernels`).  The rectified left-right
+and B5's rBRIEF mode under `FusedKernels`; on CUDA one replay of the
+front-end's pair-block graph).  The rectified left-right
 matcher is not run: the reference runs it and drops its `u_right` /
 `depth`, so nothing returned here depends on it.  The two cameras' blocks
 reach the host as one (2, K, 40) array in one copy; the lapping split,
@@ -36,14 +37,8 @@ import torch
 from orbslam3_tpu_torch import native
 from orbslam3_tpu_torch._device import resolve_device
 from orbslam3_tpu_torch.frontend.stereo_frame import DEFAULT_FX, DEFAULT_MBF, front_end
-from orbslam3_tpu_torch.ops.extractor import FusedKernels, pack_features, split_lapping
+from orbslam3_tpu_torch.ops.extractor import FusedKernels, split_lapping
 from orbslam3_tpu_torch.utils.lie import SE3
-
-
-def pair_block(fe, pair: torch.Tensor) -> torch.Tensor:
-    """(2, K, 40) f32 on the pair's device: `pack_features` of the left and
-    the right camera of `fe.extract(pair)` (u_right / depth -1)."""
-    return torch.stack([pack_features(f) for f in fe.extract(pair)])
 
 
 def split_pair_block(block: np.ndarray, lapping_l, lapping_r) -> tuple[dict, dict]:
@@ -85,7 +80,7 @@ def extract_fisheye_pair(
     dev = resolve_device(device)
     pair = torch.from_numpy(np.ascontiguousarray(np.stack([img_l, img_r]))).to(dev)
     fe = front_end(params, tuple(pair.shape[1:]), DEFAULT_MBF, DEFAULT_FX, str(dev), fused)
-    return split_pair_block(pair_block(fe, pair).cpu().numpy(), lapping_l, lapping_r)
+    return split_pair_block(fe.pair_block(pair).cpu().numpy(), lapping_l, lapping_r)
 
 
 def compute_stereo_fisheye_matches(

@@ -15,10 +15,19 @@ camera takes the per-level `_extract_single` (one B2 launch each unless
 fused), and the matcher still reads the camera-merged composite, as in
 the reference.
 
+As the reference runs the frame as one `jax.jit` dispatch, the port runs
+it on CUDA as one CUDA graph replay (`utils.frame_graph.FrameGraph`):
+`StereoFrontEnd.forward` replays the module's graph of the packed
+program, captured at its first CUDA call, and `StereoFrontEnd.eager` runs
+the same program op by op; `pair_block` (the fisheye path's two camera
+blocks, no match) is the module's second graph.  `features` returns the
+unpacked leaves and stays op by op.
+
 `extract_and_match_stereo_packed_batch` runs B frames one after the
-other into one (B, K, 40) block allocated up front: row b is the
-single-frame program on pairs[b], no batch axis inside the program (the
-reference's `lax.scan`, which its own A/B preferred to a `vmap`).
+other into one (B, K, 40) block allocated up front: row b is a replay of
+the single-frame graph on pairs[b], written into the block, no batch axis
+inside the program (the reference's `lax.scan`, which its own A/B
+preferred to a `vmap`); one graph serves every B.
 
 `StereoFrontEnd` holds the constant tables of one image geometry as module
 buffers; `StereoFrontEnd.from_reference` builds them from the numpy
@@ -179,7 +188,8 @@ def _pack_features(out: StereoFrameFeatures) -> torch.Tensor:
 class StereoFrontEnd(TableModule):
     """The stereo front-end of one image geometry, its constant tables held
     as buffers on the module's device.  `forward(pair)` takes a (2, H, W)
-    uint8 tensor and returns the (K, 40) f32 packed block."""
+    uint8 tensor and returns the (K, 40) f32 packed block: on CUDA one
+    replay of the module's graph of `eager`, the same program op by op."""
 
     def __init__(
         self, params: PyramidParams, image_hw: tuple, mbf: float, fx: float,
@@ -234,18 +244,37 @@ class StereoFrontEnd(TableModule):
             pair, self.params, self.mbf, self.fx, tables=self, fused=self.fused
         )
 
-    def forward(self, pair: torch.Tensor) -> torch.Tensor:
+    def eager(self, pair: torch.Tensor) -> torch.Tensor:
+        """The packed (K, 40) program op by op: what `forward` replays, and
+        its spec."""
         return _pack_features(self.features(pair))
+
+    def forward(self, pair: torch.Tensor) -> torch.Tensor:
+        self._check(pair)
+        return self.replay("packed", self.eager, pair)
+
+    def pair_block_eager(self, pair: torch.Tensor) -> torch.Tensor:
+        """(2, K, 40) f32: `pack_features` of the left and the right camera
+        of `extract(pair)` (u_right / depth -1), op by op."""
+        return torch.stack([pack_features(f) for f in self.extract(pair)])
+
+    def pair_block(self, pair: torch.Tensor) -> torch.Tensor:
+        """`pair_block_eager(pair)`, on CUDA as one replay of the module's
+        second graph (the fisheye path's unit of work)."""
+        self._check(pair)
+        return self.replay("pair_block", self.pair_block_eager, pair)
 
     def batch(self, pairs: torch.Tensor) -> torch.Tensor:
         """(B, 2, H, W) uint8 -> (B, K, 40) f32: row b is `forward(pairs[b])`,
-        written into one block allocated before the first frame runs."""
+        the per-frame graph replayed into row b of one block allocated
+        before the first frame runs."""
         if pairs.dim() != 4 or pairs.shape[0] == 0:
             raise ValueError(f"expected a (B, 2, H, W) batch, got {tuple(pairs.shape)}")
         k = sum(int(q) for q in self.params.features_per_level())  # the slots of a frame
         out = torch.empty((pairs.shape[0], k, PACK_COLS), dtype=torch.float32, device=pairs.device)
         for b in range(pairs.shape[0]):
-            out[b] = self(pairs[b])
+            self._check(pairs[b])
+            self.replay("packed", self.eager, pairs[b], out=out[b])
         return out
 
 

@@ -10,7 +10,11 @@ per-level `_extract_single`.
 Constant tables (resize and blur taps, moment weights, BRIEF pattern,
 composite masks, per-slot metadata) come from a `tables` module holding
 them on the device: `FeatureExtractor` for one camera,
-`frontend.stereo_frame.StereoFrontEnd` for the stereo pair.
+`frontend.stereo_frame.StereoFrontEnd` for the stereo pair.  As the
+reference dispatches `extract_features_jit` once a frame, the module runs
+its frame program on CUDA as one CUDA graph replay
+(`FeatureExtractor.packed`, `utils.frame_graph.FrameGraph`), captured at
+its first call; `FeatureExtractor.eager` is the same program op by op.
 `FusedKernels` picks the front-end's kernels, as the reference's three
 environment switches do.  `split_lapping` orders a fisheye camera's
 keypoints mono first, those in its lapping area at the tail.
@@ -50,6 +54,7 @@ from orbslam3_tpu_torch.ops.pyramid import (
 )
 from orbslam3_tpu_torch.ops.select import select_topk_grid_multi
 from orbslam3_tpu_torch.ops.window_gather import gather_windows_many
+from orbslam3_tpu_torch.utils.frame_graph import FrameGraph
 
 
 class FusedKernels(NamedTuple):
@@ -335,9 +340,12 @@ def _extract_single(
             raw_rows.append(torch.nn.functional.pad(img, (0, raw_wmax - img.shape[1])))
             samp_rows.append(torch.nn.functional.pad(samp, (0, samp_wmax - samp.shape[1])))
 
-        def offsets(y0s):  # per-slot (0, row) origins of each level's block
-            row = np.repeat(np.asarray(y0s, np.int32), k_effs)
-            return torch.from_numpy(np.stack([np.zeros_like(row), row], axis=1)).to(dev)
+        def offsets(y0s):  # per-slot (0, row) origins of each level's block,
+            # made on the device: no host-to-device copy inside the frame program
+            row = torch.cat([
+                torch.full((k,), y0, dtype=torch.int32, device=dev) for y0, k in zip(y0s, k_effs)
+            ])
+            return torch.stack([torch.zeros_like(row), row], dim=1)
 
         xy_all = torch.cat(safe_xys)
         angles_all, desc_all = _angles_and_descriptors(
@@ -432,15 +440,38 @@ def pack_features(
 
 class TableModule(torch.nn.Module):
     """Constant tables of one image geometry, held as module buffers so
-    `.to(device)` moves them all."""
+    `.to(device)` moves them all, and the CUDA graphs of the module's frame
+    programs (`replay`), captured at their first CUDA call.  A graph reads
+    the buffers at the addresses they had at its capture, so moving or
+    casting the module drops its graphs; the next CUDA call captures anew."""
 
     def __init__(self, tables: dict[str, np.ndarray]):
         super().__init__()
         for name, arr in tables.items():
             self.register_buffer(name, torch.from_numpy(np.ascontiguousarray(arr)))
+        self.graphs: dict[str, FrameGraph] = {}
+
+    def _apply(self, fn, *args, **kwargs):
+        # `.to()`, `.cuda()`, `.half()` ... reallocate the buffers
+        out = super()._apply(fn, *args, **kwargs)
+        self.graphs = {}
+        return out
 
     def resize_taps(self) -> ResizeTaps:
         return ResizeTaps(*(getattr(self, f"resize_{f}") for f in ResizeTaps._fields))
+
+    def replay(self, name: str, program, x: torch.Tensor, out: torch.Tensor | None = None):
+        """program(x) (into `out` if given): on a CUDA tensor the replay of
+        the module's graph `name`, captured from `program` at its first
+        call; on a CPU tensor, where the caller asked for the CPU, the
+        program itself."""
+        if x.device.type == "cpu":
+            result = program(x)
+            return result if out is None else out.copy_(result)
+        graph = self.graphs.get(name)
+        if graph is None:
+            graph = self.graphs.setdefault(name, FrameGraph(program, x.device))
+        return graph(x, out)
 
 
 def extraction_tables_np(params: PyramidParams, image_hw: tuple, n_cams: int) -> dict:
@@ -498,7 +529,8 @@ class FeatureExtractor(TableModule):
     """The ORB extractor of one camera geometry (the reference's
     `extract_features_jit` for one image shape), its constant tables held
     as buffers on the module's device.  `forward(image)` takes an (H, W)
-    uint8 tensor and returns its `FrameFeatures`."""
+    uint8 tensor and returns its `FrameFeatures`, op by op; `packed(image)`
+    returns the (K, 40) packed block, on CUDA as one graph replay."""
 
     def __init__(
         self, params: PyramidParams, image_hw: tuple, tables: dict[str, np.ndarray],
@@ -516,14 +548,29 @@ class FeatureExtractor(TableModule):
         """Tables from the numpy oracle's sources (`extraction_tables_np`)."""
         return cls(params, image_hw, extraction_tables_np(params, tuple(image_hw), 1), fused)
 
-    def forward(self, image: torch.Tensor) -> FrameFeatures:
+    def _check(self, image: torch.Tensor) -> None:
         if tuple(image.shape) != self.image_hw or image.dtype != torch.uint8:
             raise ValueError(
                 f"expected a {self.image_hw} uint8 image, got {image.dtype} {tuple(image.shape)}"
             )
         if image.device != self.blur_taps.device:
             raise ValueError(f"image on {image.device}, extractor on {self.blur_taps.device}")
+
+    def forward(self, image: torch.Tensor) -> FrameFeatures:
+        self._check(image)
         return extract_features(image, self.params, self, self.fused)
+
+    def eager(self, image: torch.Tensor) -> torch.Tensor:
+        """The (K, 40) packed block of `forward(image)`, op by op: the
+        program `packed` replays, and its spec."""
+        return pack_features(self(image))
+
+    def packed(self, image: torch.Tensor) -> torch.Tensor:
+        """(H, W) uint8 -> the (K, 40) f32 packed block, equal to
+        `eager(image)` bit for bit: on CUDA one replay of this extractor's
+        graph (the reference's one `extract_features_jit` dispatch)."""
+        self._check(image)
+        return self.replay("packed", self.eager, image)
 
 
 @functools.lru_cache(maxsize=8)

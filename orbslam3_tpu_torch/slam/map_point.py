@@ -145,8 +145,14 @@ class MapPoint:
             self.map.erase_map_point(self)
 
     def replace(self, other: "MapPoint"):
-        """Fuse this point into `other` (MapPoint::Replace semantics)."""
-        if other.id == self.id:
+        """Fuse this point into `other` (MapPoint::Replace semantics).
+
+        A point that was itself fused into this one is not a target: a
+        loop correction's matches are found while LocalMapping still runs,
+        so the loop point may have been fused into the current one since,
+        and pointing back at it would close a cycle of replacements that
+        `get_replaced` never leaves."""
+        if other.id == self.id or other.get_replaced() is self:
             return
         obs = dict(self.observations)
         self.observations.clear()

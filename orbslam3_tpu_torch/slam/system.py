@@ -9,7 +9,13 @@ System.cc:197).
 
 The front-end runs on an explicit torch `device` ("cuda" by default,
 raising when no GPU is present; "cpu" runs the kernels' plain versions),
-with the kernels `fused` picks (`FusedKernels`).
+with the kernels `fused` picks (`FusedKernels`).  On CUDA each frame's
+front-end is one dispatch, as the reference's one `jax.jit` call a frame:
+the replay of a CUDA graph of its geometry and configuration
+(`StereoFrontEnd.forward` / `.pair_block`, `FeatureExtractor.packed`),
+captured at the first frame; a batched prefetch replays the per-frame
+graph once a row.  The upload of the images and the copy of the packed
+block to the host stay outside the graph.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 from orbslam3_tpu_torch._device import resolve_device
 from orbslam3_tpu_torch.frontend import fisheye
 from orbslam3_tpu_torch.frontend.stereo_frame import front_end, unpack_host_features
-from orbslam3_tpu_torch.ops.extractor import FusedKernels, feature_extractor, pack_features
+from orbslam3_tpu_torch.ops.extractor import FusedKernels, feature_extractor
 from orbslam3_tpu_torch.oracle.orb_cpu import PyramidParams, resize_linear_u8
 from orbslam3_tpu_torch.slam.frame import Frame
 from orbslam3_tpu_torch.slam.local_mapping import LocalMapping
@@ -261,18 +267,20 @@ class System:
         return unpack(host)
 
     def _extract_stereo(self, img_l: np.ndarray, img_r: np.ndarray):
-        """Front-end on `self.device` -> compacted numpy feature arrays."""
+        """Front-end on `self.device` (on CUDA one graph replay) ->
+        compacted numpy feature arrays."""
         fe = self._front_end(img_l.shape)
         return self._on_device(FRONT_END_STREAM_TAG, lambda: fe(self._pair(img_l, img_r)))
 
     def _extract_mono(self, img: np.ndarray, params, tag: str):
         """One-camera extraction on `self.device` (the reference's
-        `extract_features_jit`) -> compacted numpy feature arrays."""
+        `extract_features_jit`; on CUDA one graph replay of the extractor
+        of `params`) -> compacted numpy feature arrays."""
         fe = feature_extractor(params, tuple(img.shape), self.fused, str(self.device))
 
         def run():
             image = torch.from_numpy(np.ascontiguousarray(img)).to(self.device, non_blocking=True)
-            return pack_features(fe(image))
+            return fe.packed(image)
 
         return self._on_device(tag, run)
 
@@ -284,7 +292,7 @@ class System:
         fe = self._front_end(img_l.shape)
         fl, fr = self._on_device(
             FRONT_END_STREAM_TAG,
-            lambda: fisheye.pair_block(fe, self._pair(img_l, img_r)),
+            lambda: fe.pair_block(self._pair(img_l, img_r)),
             lambda host: fisheye.split_pair_block(host, self.lapping1, self.lapping2),
         )
         level_sigma2 = np.asarray(self.scale_factors, np.float64) ** 2
@@ -403,8 +411,9 @@ class System:
     def prefetch_stereo_batch(self, pairs: list):
         """Batched prefetch: start the front-end for B future frames as one
         batch program (`StereoFrontEnd.batch`, the frames one after the
-        other into one (B, K, 40) block) and return one handle per frame,
-        each consumable by track_stereo_prefetched in order.
+        other into one (B, K, 40) block, on CUDA one replay of the
+        per-frame graph a row) and return one handle per frame, each
+        consumable by track_stereo_prefetched in order.
 
         On CUDA the program and one copy of the block into pinned host
         memory run on the side stream, with one event after the copy; the
@@ -800,15 +809,20 @@ class System:
             t._imu_meas_since_kf = []
 
     def shutdown(self):
+        """System::Shutdown role: ask LocalMapping, then LoopClosing, to
+        finish, and wait until each has, with no time limit, as upstream
+        waits on their isFinished: a thread still in a local BA, a loop
+        correction or a merge when the caller goes on to read the map would
+        hand it half-moved poses."""
         if self.viewer is not None:
             self.viewer.request_finish()
         self.local_mapper.request_finish()
         if self._mapper_thread is not None:
-            self._mapper_thread.join(timeout=5)
+            self._mapper_thread.join()
         if self.loop_closer is not None:
             self.loop_closer.request_finish()
         if self._loop_thread is not None:
-            self._loop_thread.join(timeout=5)
+            self._loop_thread.join()
         if self.loop_closer is not None:
             # after the spin thread stops (no new spawns), let an in-flight
             # transient GBA write back before the atlas is persisted

@@ -2,7 +2,7 @@
 
 `device_ms` is the device time per call of a function, from CUDA events
 around the replay of a CUDA graph of many calls; `cuda_ms` the median
-window between CUDA events around one call; `device_profile` the
+window between CUDA events around one call, `window_ms` one such window; `device_profile` the
 device-busy time of its ops from torch.profiler; `bound_ms` the larger of
 the bytes over the memory rate and the operations over the peak rate of
 their type.  Every function here needs a CUDA card.
@@ -71,6 +71,19 @@ def cuda_ms(fn, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def window_ms(fn) -> float:
+    """The window between CUDA events around one fn() on the current
+    stream, in ms, the card synchronised before."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def device_profile(fn, reps: int = 10):

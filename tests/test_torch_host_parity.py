@@ -72,6 +72,7 @@ SEAMS = {
         "_opposite_of_minor", "_sign", "_rotation_from", "decompose_homography",
         "TwoViewReconstruction.reconstruct",
     ),
+    "slam/map_point.py": ("MapPoint.replace",),
 }
 FX = 350.0
 H, W = 384, 512

@@ -9,7 +9,9 @@ RGB-D frames, the device local-map matcher (DEVICE_MATCH_MIN lowered),
 `trace_range` and `device_trace`, the trajectory savers, an atlas saved
 by the port and one saved by the reference, both loaded by the port, the
 stereo fisheye path and batched prefetch, and every module users launch
-(the examples, the entry hook, the bench, the ATE tool and the soak).
+(the examples, the entry hook, the bench, the ATE tool and the soak); the
+frame graphs (`utils.frame_graph`) and the launch registry are among the
+modules it loads.
 
 No module of the port imports cv2 or PIL, except the two that draw
 (synth's test textures, the viewer), neither on a tracking path; the
@@ -169,6 +171,9 @@ _SCRIPT = textwrap.dedent(
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu"))
     assert not leaked, leaked
+    # the frame graphs and the launch registry were loaded under the refusal
+    assert {"orbslam3_tpu_torch.utils.frame_graph", "orbslam3_tpu_torch.utils.launches"} <= set(
+        sys.modules)
     print("ISOLATED_OK")
     """
 )
