@@ -120,7 +120,16 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      stream interleaved with track_stereo on the current one (every
      prefetched block equal to eager, phase 4's poses); and a program with
      an .item() inside whose capture raises at each call, with nothing run
-     in its place.
+     in its place;
+ 21. the tools that measure the whole System (orbslam3_tpu_torch/tools):
+     bench_system at 60 frames (the threaded System with the prefetch
+     pipeline: every frame tracked, ATE under 1 cm, one B1 and two B2
+     launches a frame), every stage of bench_stages (device ms per call,
+     CUDA graph of 20 calls), bench_matchers at every size (500 to 100000
+     candidates; at each the device matcher returns the host matcher's
+     matches), and trace_ops on one frame: its graphed frame's top 10
+     kernels (the whole report in chiprun_out/chip_smoke_trace_ops.txt).
+     Each result on its own line beside the card's name and power limit.
 Phase 1 also prints whether cv2 is importable (the port needs none).
 
 Phase 2 also requires the port's native host library to build
@@ -136,7 +145,9 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import statistics
@@ -193,6 +204,7 @@ EUROC_T0_NS = 1403636579 * 10**9
 EUROC_BATCH = 8
 # phase 19: the bench's frames at the smoke's reduced count
 BENCH_FRAMES = 16
+TOOL_FRAMES = 60  # bench_system's frames in phase 21
 FUSED_PER_FRAME = {"detect_fused": 1, "window_moments": 1, "brief_descriptors": 1}
 # the System's own stage records a driver run prints (host wall, or the
 # stream window between CUDA events for `.stream`)
@@ -678,6 +690,70 @@ def phase_entry_and_bench(card: str) -> None:
           f"{r['window_ms']:.4f} ms/frame graphed, {r['eager_window_ms']:.4f} eager, batched "
           f"({EUROC_BATCH}) {r['batch_ms']:.4f} ms/frame")
     phase("19 bench headline: " + json.dumps(port_bench.final_line(r["wall_ms"])))
+
+
+def _tool_lines(fn) -> tuple:
+    """(fn's result, the lines it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    return result, buf.getvalue().splitlines()
+
+
+def phase_tools(card: str, port) -> None:
+    """Phase 21: the tools that measure the whole System, on the card."""
+    from orbslam3_tpu_torch.slam import matchers
+    from orbslam3_tpu_torch.tools import bench_matchers, bench_stages, bench_system
+
+    port.reset_kernel_launches()
+    (per_frame, wall), _ = _tool_lines(lambda: bench_system.run(TOOL_FRAMES))
+    launches = port.kernel_launches()
+    phase(f"21 bench_system {TOOL_FRAMES} frames on {card}: {json.dumps(per_frame)}")
+    phase(f"21 bench_system on {card}: {json.dumps(wall)}")
+    require(per_frame["tracked"] == TOOL_FRAMES and per_frame["ate_rmse_m"] < 0.01,
+            f"bench_system: {per_frame['tracked']}/{TOOL_FRAMES} tracked, ATE "
+            f"{per_frame['ate_rmse_m']} m")
+    require(launches["fast_score"] == TOOL_FRAMES
+            and launches["gather_windows"] == 2 * TOOL_FRAMES,
+            f"bench_system: launches {launches} over {TOOL_FRAMES} frames")
+    phase(f"21 bench_system kernel launches in the run: {launches}")
+
+    stages, lines = _tool_lines(lambda: bench_stages.run())
+    for line in lines:
+        phase(f"21 bench_stages on {card}: {line}")
+    require(len(stages) == 12 and all(0 < v < 1e3 for v in stages.values()),
+            f"bench_stages: {stages}")
+
+    for n in bench_matchers.SIZES:
+        (line,), _ = _tool_lines(lambda: bench_matchers.run([n]))
+        frame, mps = bench_matchers.make_scene(n)
+        host = bench_matchers.matched(
+            lambda: matchers.search_by_projection_local_map(frame, mps, th=2.0), frame)
+        dev = bench_matchers.matched(lambda: matchers.search_by_projection_local_map_device(
+            frame, mps, th=2.0, device=torch.device("cuda")), frame)
+        require(np.array_equal(host, dev), f"bench_matchers {n}: device matches != host's")
+        phase(f"21 bench_matchers on {card}: {json.dumps(line)}; device matches == host's "
+              f"({int((host >= 0).sum())} keypoints matched)")
+
+    # trace_ops in a process of its own: late in a long process a
+    # profiler trace can miss device events (phases 6 and 11 meet that)
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "orbslam3_tpu_torch.tools.trace_ops", "10", "--frames=1"],
+        capture_output=True, text=True, cwd=here, timeout=600,
+        env=dict(os.environ, PYTHONPATH=here),
+    )
+    lines = [line for line in proc.stdout.splitlines() if not line.startswith("USDT:")]
+    out_dir = os.path.join(here, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_trace_ops.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n" + proc.stderr[-4000:])
+    require(proc.returncode == 0 and lines[0] == card,
+            f"trace_ops exited {proc.returncode}: {proc.stderr[-2000:]}")
+    start = next((i for i, line in enumerate(lines) if line.startswith("graphed frame")), None)
+    require(start is not None, "trace_ops printed no graphed frame")
+    for line in lines[start:start + 13]:
+        phase(f"21 trace_ops on {card}: {line}")
 
 
 def phase_graphs(frames, poses, rgbd_frames, fisheye_program, card: str, port, bench) -> None:
@@ -1376,6 +1452,7 @@ def main() -> int:
     phase_tum_rgbd(card, port, bench)
     phase_entry_and_bench(card)
     phase_graphs(frames, est, rgbd_frames, fisheye_program, card, port, bench)
+    phase_tools(card, port)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu"))
     phase(f"modules of JAX or the JAX package loaded: {leaked or 'none'}")

@@ -194,18 +194,25 @@ class LocalMapping:
         return self.kf_queue.qsize()
 
     def spin(self):
-        """Worker-thread loop (LocalMapping::Run)."""
+        """Worker-thread loop (LocalMapping::Run).
+
+        A keyframe leaves the queue only under the run lock, as upstream's
+        Run pops it inside ProcessNewKeyFrame: a paused mapper holds none
+        in hand, so the loop closer, which empties the queue before a merge
+        or a correction, sees every keyframe the tracker has made."""
         while not self.finished:
-            try:
-                kf = self.kf_queue.get(timeout=0.05)
-            except queue.Empty:
-                continue
             with self._run_lock:
-                self._idle = False
-                self._accept_kfs = False
-                self._process(kf)
-                self._accept_kfs = True
-                self._idle = True
+                try:
+                    kf = self.kf_queue.get(timeout=0.01)
+                except queue.Empty:
+                    kf = None
+                if kf is not None:
+                    self._idle = False
+                    self._accept_kfs = False
+                    self._process(kf)
+                    self._accept_kfs = True
+                    self._idle = True
+            time.sleep(0)  # a request_stop waiting on the lock takes it here
 
     def request_stop(self):
         """Block until the worker parks between keyframes, then keep it

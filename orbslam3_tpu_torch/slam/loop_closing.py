@@ -13,6 +13,7 @@ role, LoopClosing2.cc:352 / LoopClosing3.cc:35).
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 
@@ -109,8 +110,22 @@ class LoopClosing:
             mapper = self.local_mapper
             if mapper is not None:
                 mapper.request_stop()
+            # a merge holds both maps' update locks until the welding BA
+            # ends (LoopClosing::MergeLocal locks the current and the
+            # merged map): once change_map has run, a frame tracks on the
+            # old map, and LocalMapping writes its BA back to it.  One
+            # order, by map id, and no other thread holds two of them
+            maps = sorted({kf.map, cand.map}, key=lambda m: m.id)
             try:
-                with kf.map.update_lock:
+                with contextlib.ExitStack() as held:
+                    for m in maps:
+                        held.enter_context(m.update_lock)
+                    # keyframes the tracker queued for the mapper join the
+                    # current map first, so the correction or the merge
+                    # moves them with the rest (LocalMapping::EmptyQueue:
+                    # ProcessNewKeyFrame on each)
+                    while mapper is not None and not mapper.kf_queue.empty():
+                        mapper._process_new_keyframe(mapper.kf_queue.get_nowait())
                     if cand.map is kf.map:
                         self.correct_loop(kf, cand, s_cur_cand, matches)
                     else:
@@ -340,7 +355,12 @@ class LoopClosing:
             k.set_pose(s_new.to_se3())
             k.update_connections()
 
-        # fuse loop-candidate points into the current KF (SearchAndFuse)
+        # fuse loop-candidate points into the current KF (SearchAndFuse).
+        # The matches were found while LocalMapping still ran: a loop point
+        # culled since is dropped, one fused into another since is followed
+        # to the point that replaced it
+        matches = {i: mp.get_replaced() for i, mp in matches.items()}
+        matches = {i: mp for i, mp in matches.items() if not mp.bad}
         for i, mp_loop in matches.items():
             cur_mp = kf.map_points[i]
             if cur_mp is not None and cur_mp is not mp_loop and not cur_mp.bad:

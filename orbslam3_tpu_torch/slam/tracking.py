@@ -118,9 +118,13 @@ class Tracking:
         self._local_slots_table = None
         # map-update lock for the whole frame (Tracking3.cc:135): excludes
         # concurrent loop correction / merge in threaded mode; reentrant
-        # no-op in sequential mode
-        with self.atlas.get_current_map().update_lock:
-            return self._track_frame_locked(frame)
+        # no-op in sequential mode.  A merge that ran while the frame waited
+        # has made another map the current one: take that map's lock instead
+        while True:
+            m = self.atlas.get_current_map()
+            with m.update_lock:
+                if self.atlas.get_current_map() is m:
+                    return self._track_frame_locked(frame)
 
     def _track_frame_locked(self, frame: Frame) -> SE3 | None:
         # timestamp-jump detection (Tracking3.cc:66-104): a frame older than

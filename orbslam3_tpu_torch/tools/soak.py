@@ -23,10 +23,11 @@ on the same pair, bit for bit.
 Besides the reference's report, each run prints the replayed ATE read
 as the last frame is tracked (the back-end threads may still be at work)
 and after `shutdown` (every thread ended), how long the shutdown waited,
-the loops closed and maps merged, the tracked frames the replay lost,
-and the stretches of frames whose replayed error stands out.  A run in
-which no frame is tracked for WATCHDOG_S seconds prints every thread's
-stack and ends the process.
+the loops closed and maps merged, the tracked frames the replay lost
+(with the keyframe and map their reference reaches), and the stretches
+of frames whose replayed error stands out.  A run in which no frame is
+tracked for WATCHDOG_S seconds prints every thread's stack and ends the
+process.
 """
 
 import faulthandler
@@ -167,6 +168,29 @@ def error_stretches(ks: list, err: np.ndarray, floor_m: float = 0.005) -> list:
     return sorted(out, key=lambda e: -e[3])[:8]
 
 
+def replay_losses(sysm, frames: list, lost_frames: list) -> list:
+    """[(reference keyframe id, its map's id, "live" / "retired", frames)]
+    of the tracked frames the replay left out, grouped by the keyframe the
+    replay reached from each frame's reference (culled ones walked up to
+    their parent, as `System.frame_trajectory` does), in frame order."""
+    index_by_ts = {round(k / 20.0, 6): k for k in range(len(frames))}
+    want, live = set(lost_frames), set(map(id, sysm.atlas.get_all_maps()))
+    groups: dict = {}
+    for _fid, ts, _tcr, ref, lost in sysm.tracker.trajectory:
+        k = index_by_ts.get(round(ts, 6))
+        if k not in want:
+            continue
+        kf = ref
+        while kf is not None and kf.bad and kf.parent is not None:
+            kf = kf.parent
+        if kf is None or kf.map is None or lost:
+            key = (-1, -1, "logged lost" if lost else "no reference")
+        else:
+            key = (kf.id, kf.map.id, "live" if id(kf.map) in live else "retired")
+        groups.setdefault(key, []).append(k)
+    return [key + (ks,) for key, ks in sorted(groups.items(), key=lambda g: g[1][0])]
+
+
 def _digest(host) -> bytes:
     return hashlib.blake2b(np.ascontiguousarray(host).tobytes(), digest_size=16).digest()
 
@@ -292,8 +316,15 @@ def run_once(frames: list, camera, mbf: float, voc, depth: int, sequential: bool
         "loops_closed": lc.n_loops_closed if lc is not None else 0,
         "maps_merged": getattr(lc, "n_merges", 0),
         "tracked_not_replayed": lost_in_replay[:20],
+        "n_tracked_not_replayed": len(lost_in_replay),
     }
     print(json.dumps(result), flush=True)
+    if lost_in_replay:
+        print("tracked frames not replayed, by the keyframe their reference reaches:",
+              flush=True)
+        for kf_id, map_id, state, lost_ks in replay_losses(sysm, frames, lost_in_replay):
+            print(f"  keyframe {kf_id} of map {map_id} ({state}): {len(lost_ks)} frames "
+                  f"{lost_ks[0]}-{lost_ks[-1]}", flush=True)
     print("replayed error stretches (first-last frame, frames, largest mm):", flush=True)
     for a, b, count, emax in error_stretches(ks, err):
         print(f"  frames {a}-{b} ({count} frames): {emax*1000:.2f} mm", flush=True)

@@ -9,11 +9,14 @@ asserted bit-identical: no tolerance is needed.  The torch dense matcher
 (`search_by_projection_batch`, the reference's is JAX) must equal the
 reference's integers, ties included.  One port `System` and one reference
 `System` track the same 10-frame stereo sequence; an atlas the reference
-saves loads into the port.  Thirty-nine of the copies differ from the
+saves loads into the port.  Thirty-six of the copies differ from the
 reference in nothing but the package's name and the upstream C++ paths
-their comments cite, and two (`frontend/rectify.py`, `optim/two_view.py`)
-besides only in named seams, the definitions that replace cv2; a test
-holds each to that.
+their comments cite, and six besides only in named seams: the
+definitions that replace cv2 (`frontend/rectify.py`, `optim/two_view.py`),
+and the threaded back-end's repairs (`slam/map_point.py`,
+`slam/local_mapping.py`, `slam/loop_closing.py`, `slam/tracking.py`,
+whose seams also hold the dense matcher's device); a test holds each to
+that.
 """
 
 import ast
@@ -56,7 +59,8 @@ VERBATIM_COPIES = [
     "optim/sim3_optimizer.py", "optim/sim3_solver.py", "optim/triangulate.py",
     "optim/two_view.py", "oracle/__init__.py", "oracle/stereo_cpu.py", "slam/__init__.py",
     "slam/frame.py", "slam/keyframe.py", "slam/local_mapping.py", "slam/loop_closing.py",
-    "slam/map.py", "slam/map_point.py", "slam/relocalization.py", "utils/__init__.py",
+    "slam/map.py", "slam/map_point.py", "slam/relocalization.py", "slam/tracking.py",
+    "utils/__init__.py",
     "utils/lie.py", "utils/settings.py", "utils/synth.py", "utils/trajectory.py",
     "utils/viewer.py", "vocab/__init__.py", "vocab/keyframe_database.py",
     "vocab/vocabulary.py",
@@ -73,6 +77,14 @@ SEAMS = {
         "TwoViewReconstruction.reconstruct",
     ),
     "slam/map_point.py": ("MapPoint.replace",),
+    # the threaded back-end's map locking: both maps locked through a
+    # merge, the mapper's queue emptied first, stale loop matches
+    # resolved, a frame tracking under the current map's lock
+    "slam/loop_closing.py": ("imports", "LoopClosing._handle", "LoopClosing.correct_loop"),
+    "slam/local_mapping.py": ("LocalMapping.spin",),
+    "slam/tracking.py": (
+        "Tracking.__init__", "Tracking._search_local_points", "Tracking.track_frame",
+    ),
 }
 FX = 350.0
 H, W = 384, 512

@@ -9,7 +9,8 @@ RGB-D frames, the device local-map matcher (DEVICE_MATCH_MIN lowered),
 `trace_range` and `device_trace`, the trajectory savers, an atlas saved
 by the port and one saved by the reference, both loaded by the port, the
 stereo fisheye path and batched prefetch, and every module users launch
-(the examples, the entry hook, the bench, the ATE tool and the soak); the
+(the examples, the entry hook, the bench, the ATE tool, the soak and the
+tools that measure the whole System); the
 frame graphs (`utils.frame_graph`) and the launch registry are among the
 modules it loads.
 
@@ -168,6 +169,10 @@ _SCRIPT = textwrap.dedent(
     import orbslam3_tpu_torch.examples.run_synth, orbslam3_tpu_torch.examples.run_tum_rgbd
     import orbslam3_tpu_torch.examples.run_tumvi, orbslam3_tpu_torch.tools.evaluate_ate
     import orbslam3_tpu_torch.tools.soak
+    # and the tools that measure the whole System
+    import orbslam3_tpu_torch.tools.bench_matchers, orbslam3_tpu_torch.tools.bench_stages
+    import orbslam3_tpu_torch.tools.bench_system, orbslam3_tpu_torch.tools.card
+    import orbslam3_tpu_torch.tools.profile_host, orbslam3_tpu_torch.tools.trace_ops
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu"))
     assert not leaked, leaked
@@ -222,7 +227,10 @@ DRIVER_SURFACE = (
     "orbslam3_tpu_torch/examples/run_kitti.py", "orbslam3_tpu_torch/examples/run_multi_robot.py",
     "orbslam3_tpu_torch/examples/run_synth.py", "orbslam3_tpu_torch/examples/run_tum_rgbd.py",
     "orbslam3_tpu_torch/examples/run_tumvi.py", "orbslam3_tpu_torch/tools/evaluate_ate.py",
-    "orbslam3_tpu_torch/tools/soak.py", "orbslam3_tpu_torch/utils/imageio.py",
+    "orbslam3_tpu_torch/tools/soak.py", "orbslam3_tpu_torch/tools/bench_system.py",
+    "orbslam3_tpu_torch/tools/bench_stages.py", "orbslam3_tpu_torch/tools/trace_ops.py",
+    "orbslam3_tpu_torch/tools/bench_matchers.py", "orbslam3_tpu_torch/tools/profile_host.py",
+    "orbslam3_tpu_torch/utils/imageio.py",
     "orbslam3_tpu_torch/frontend/rectify.py", "orbslam3_tpu_torch/optim/two_view.py",
     "orbslam3_tpu_torch/slam/system.py",
 )
