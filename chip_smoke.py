@@ -98,8 +98,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      752x480 rig at MH01's calibration and imu0; stereo, stereo-inertial
      and --batch 8, each with every frame in its trajectory file, ATE under
      2 cm through tools.evaluate_ate, one B1 and two B2 launches a frame;
-     PNG decode, device remap and tracking ms per frame printed, the remap
-     on the card equal to the CPU's;
+     PNG decode, device remap, tracking and the driver's wall ms per frame
+     printed, the remap on the card equal to the CPU's; the rectifier's
+     remap as a CUDA graph (captured at a fresh rectifier's first frame,
+     replayed for the other 29) equal to the eager remap bit for bit on
+     every frame, its time a pair graphed and eager (CUDA events);
  18. the TUM-RGBD driver under --fused detect,moments,sample on phase 9's
      sequence as a TUM tree (colour read as grey, 16-bit depth): every
      frame, ATE under 2 cm, one B3, one B4 and one B5 rBRIEF launch a
@@ -129,7 +132,17 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      candidates; at each the device matcher returns the host matcher's
      matches), and trace_ops on one frame: its graphed frame's top 10
      kernels (the whole report in chiprun_out/chip_smoke_trace_ops.txt).
-     Each result on its own line beside the card's name and power limit.
+     Each result on its own line beside the card's name and power limit;
+ 22. in a process that refuses cv2, PIL and matplotlib (and JAX): System.from_files(
+     use_viewer=True) on phase 17's rig tracks 4 stereo frames and its
+     viewer writes frame and map PNGs that utils.imageio decodes, and
+     make_texture(2048) draws its polygons with utils/raster.fill_poly; where
+     cv2 is importable in the smoke's own process, that texture equals the
+     one drawn with cv2.fillPoly bit for bit, both timed, and the line
+     after prints cv2's version and whether its putText of the printable
+     characters equals utils/raster.put_text's (the glyph table is cv2
+     5.x's anti-aliased text, cv2 4.x draws it without: printed, not
+     required).
 Phase 1 also prints whether cv2 is importable (the port needs none).
 
 Phase 2 also requires the port's native host library to build
@@ -155,6 +168,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -534,7 +548,8 @@ def _driver_run(label: str, run, n: int, traj: str, gt: str, per_frame: dict, po
           f"{res.get('value', float('nan')) * 100:.4f} cm over {res.get('pairs')} pairs "
           f"(tools.evaluate_ate), {slam.map_stats()}; ms/frame: decode {sum(decode) / n:.4f} "
           f"({len(decode) // n} PNGs a frame), track median {statistics.median(track):.4f} "
-          f"(after frame 0 {statistics.median(track[1:]):.4f}); driver wall {wall:.1f} s; "
+          f"(after frame 0 {statistics.median(track[1:]):.4f}); driver wall {wall:.1f} s, "
+          f"{wall / n * 1e3:.1f} ms a frame; "
           f"launches per frame {({k: v / n for k, v in launches.items() if v})}")
     stages = {tag: statistics.median(bench.records[tag]) for tag in STAGE_TAGS
               if bench.records.get(tag)}
@@ -547,6 +562,21 @@ def _driver_run(label: str, run, n: int, traj: str, gt: str, per_frame: dict, po
     return slam
 
 
+def _euroc_rig(port) -> tuple:
+    """Phase 17's EuRoC cameras (left, right) and T_rl."""
+    from orbslam3_tpu_torch.utils.lie import SE3, so3_exp
+
+    cam_l, cam_r = (port.Pinhole(k, d) for k, d in EUROC_CAMS)
+    t_rl = SE3(so3_exp(np.array([0.004, -0.006, 0.002])), np.array([-0.11, 0.001, -0.0008]))
+    return cam_l, cam_r, t_rl
+
+
+def _stereo_settings(t_rl) -> str:
+    """Phase 17's stereo settings file text (the distorted EuRoC rig)."""
+    rig = "Stereo.ThDepth: 60.0\n" + _opencv_matrix("Stereo.T_c1_c2", t_rl.inverse())
+    return _settings_text(EUROC_CAMS, W, H, rig)
+
+
 def phase_euroc(card: str, port, bench) -> None:
     """Phase 17: a EuRoC ASL tree through examples.run_euroc on the card."""
     from orbslam3_tpu_torch.examples import run_euroc
@@ -555,8 +585,7 @@ def phase_euroc(card: str, port, bench) -> None:
     from orbslam3_tpu_torch.utils.lie import SE3, so3_exp
     from orbslam3_tpu_torch.utils.synth import imu_samples_between
 
-    cam_l, cam_r = (port.Pinhole(k, d) for k, d in EUROC_CAMS)
-    t_rl = SE3(so3_exp(np.array([0.004, -0.006, 0.002])), np.array([-0.11, 0.001, -0.0008]))
+    cam_l, cam_r, t_rl = _euroc_rig(port)
     tbc = SE3(so3_exp(np.array([0.0, 0.0, np.pi / 2])), np.array([-0.0216, -0.0647, 0.0098]))
     t0 = time.perf_counter()
     frames = port.stereo_sequence(N_FRAMES, cam_l, 0.11, H, W, seed=3, camera_r=cam_r, T_rl=t_rl)
@@ -582,7 +611,7 @@ def phase_euroc(card: str, port, bench) -> None:
         stereo = os.path.join(tmp, "EuRoC.yaml")
         rig = "Stereo.ThDepth: 60.0\n" + _opencv_matrix("Stereo.T_c1_c2", t_rl.inverse())
         with open(stereo, "w") as f:
-            f.write(_settings_text(EUROC_CAMS, W, H, rig))
+            f.write(_stereo_settings(t_rl))
         inertial = os.path.join(tmp, "EuRoC_VI.yaml")
         with open(inertial, "w") as f:
             f.write(_settings_text(EUROC_CAMS, W, H, rig + (
@@ -622,6 +651,21 @@ def phase_euroc(card: str, port, bench) -> None:
         phase(f"17 device remap of a frame's two {W}x{H} images (one pass) on {card}: {remap:.4f} ms "
               f"(CUDA events), equal to the CPU's; their upload from pageable memory "
               f"{upload:.4f} ms")
+        # the rectifier's remap as a CUDA graph (StereoRectifier.rectify): a
+        # fresh rectifier captures at its first frame and replays after it
+        fresh = _rectifier_of(stereo, "stereo")
+        for k, fr in enumerate(frames):
+            got = torch.stack(fresh.rectify(fr[0], fr[1], "cuda"))
+            want = remap_bilinear(torch.from_numpy(np.stack(fr[:2])).cuda(), *dev_maps)
+            require(torch.equal(got, want), f"17 the graphed remap differs from eager at frame {k}")
+        graph = fresh._device_maps[torch.device("cuda")].graphs["remap"]
+        replays = graph.replays
+        require(replays == N_FRAMES - 1, f"17 remap graph replays {replays}")
+        graphed = cuda_ms(lambda: graph(dev_pair))
+        phase(f"17 the rectifier's remap as a CUDA graph on {card}: == eager bit for bit on "
+              f"{N_FRAMES} frames (captured at frame 0 in {graph.capture_ms:.1f} ms, then "
+              f"{replays} replays); a pair, the window between CUDA events: graphed "
+              f"{graphed:.4f} ms (input copy, replay, output clone), eager {remap:.4f} ms")
 
 
 def _rectifier_of(settings: str, sensor: str):
@@ -698,6 +742,117 @@ def _tool_lines(fn) -> tuple:
     with contextlib.redirect_stdout(buf):
         result = fn()
     return result, buf.getvalue().splitlines()
+
+
+# phase 22: a viewer run in a process that refuses cv2, PIL and matplotlib, and the
+# texture every synthetic sequence draws
+_NO_CV2_RUN = """
+import json, os, sys, time
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu", "cv2", "PIL", "matplotlib"):
+            raise ImportError("the port must not import " + name)
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+import numpy as np
+from orbslam3_tpu_torch.slam.system import System
+from orbslam3_tpu_torch.utils import imageio
+from orbslam3_tpu_torch.utils.synth import make_texture
+
+settings, frames, out, size = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+t0 = time.perf_counter()
+np.save(os.path.join(out, "texture.npy"), make_texture(size, 0))
+texture_s = time.perf_counter() - t0
+slam = System.from_files(None, settings, "stereo", use_viewer=True,
+                         viewer_dir=os.path.join(out, "viewer"), device="cuda")
+poses = [slam.track_stereo(l, r, k / 20.0) for k, (l, r) in enumerate(np.load(frames))]
+slam.shutdown()
+pngs = {n: list(imageio.imread(os.path.join(out, "viewer", n), unchanged=True).shape)
+        for n in sorted(os.listdir(os.path.join(out, "viewer")))}
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu", "cv2", "PIL", "matplotlib"))
+print(json.dumps({"texture_s": texture_s, "tracked": sum(p is not None for p in poses),
+                  "pngs": pngs, "leaked": leaked}))
+"""
+VIEWER_FRAMES = 4
+TEXTURE_SIZE = 2048  # the soak's
+
+
+def _cv2_drawings(size: int, seed: int, text: str) -> tuple:
+    """cv2's side of phase 22: make_texture's texture with its polygons
+    drawn by cv2.fillPoly, as the JAX package draws them (the port's own
+    function with only its fill_poly swapped for cv2's), its host wall, the
+    text drawn by cv2.putText in FONT_HERSHEY_PLAIN, and cv2's version."""
+    import cv2
+    from orbslam3_tpu_torch.utils import synth
+
+    def cv2_fill(img, pts, value):
+        cv2.fillPoly(img, [pts], value)
+
+    t0 = time.perf_counter()
+    with mock.patch.object(synth, "fill_poly", cv2_fill):
+        texture = synth.make_texture(size, seed)
+    texture_s = time.perf_counter() - t0
+    drawn = np.zeros((24, 1100), np.uint8)
+    cv2.putText(drawn, text, (10, 16), cv2.FONT_HERSHEY_PLAIN, 1, 255, 1)
+    return texture, texture_s, drawn, cv2.__version__
+
+
+def phase_viewer_and_texture(card: str, port) -> None:
+    """Phase 22: System.from_files(use_viewer=True) on phase 17's rig in a
+    process that refuses cv2, PIL and matplotlib; make_texture there against the
+    cv2.fillPoly drawing here, where cv2 is importable."""
+    from orbslam3_tpu_torch.utils import raster
+
+    cam_l, cam_r, t_rl = _euroc_rig(port)
+    frames = port.stereo_sequence(VIEWER_FRAMES, cam_l, 0.11, H, W, seed=3, camera_r=cam_r,
+                                  T_rl=t_rl)
+    with tempfile.TemporaryDirectory() as tmp:
+        settings, pairs = os.path.join(tmp, "EuRoC.yaml"), os.path.join(tmp, "pairs.npy")
+        with open(settings, "w") as f:
+            f.write(_stereo_settings(t_rl))
+        np.save(pairs, np.stack([np.stack(fr[:2]) for fr in frames]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _NO_CV2_RUN, settings, pairs, tmp, str(TEXTURE_SIZE)],
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__))),
+        )
+        require(proc.returncode == 0, f"22 the viewer run failed: {proc.stderr[-3000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        pngs = res["pngs"]
+        frame_pngs = [n for n in pngs if n.startswith("frame_")]
+        require(not res["leaked"], f"22 loaded {res['leaked']}")
+        require(res["tracked"] == VIEWER_FRAMES, f"22 tracked {res['tracked']}/{VIEWER_FRAMES}")
+        require(frame_pngs and all(pngs[n] == [H, W, 3] for n in frame_pngs)
+                and any(n.startswith("map_") and pngs[n][2] == 3 for n in pngs),
+                f"22 viewer PNGs {pngs}")
+        phase(f"22 System.from_files(use_viewer=True) on {card}, cv2, PIL and matplotlib refused: "
+              f"{VIEWER_FRAMES}/{VIEWER_FRAMES} stereo frames tracked, the viewer wrote "
+              f"{len(pngs)} PNGs that utils.imageio decodes ({len(frame_pngs)} frames of "
+              f"{W}x{H}x3, the rest maps); process wall {time.perf_counter() - t0:.1f} s")
+        if importlib.util.find_spec("cv2") is None:
+            phase("22 cv2 is not importable here: make_texture is compared with cv2.fillPoly on "
+                  "the CPU only (tests/test_torch_raster.py)")
+            return
+        printable = "".join(chr(c) for c in range(32, 127))
+        want, cv2_s, text_cv2, version = _cv2_drawings(TEXTURE_SIZE, 0, printable)
+        require(np.array_equal(np.load(os.path.join(tmp, "texture.npy")), want),
+                "22 make_texture without cv2 differs from the cv2.fillPoly drawing")
+    phase(f"22 make_texture({TEXTURE_SIZE}, 0) with cv2 refused == the same texture drawn "
+          f"with cv2.fillPoly, bit for bit; host wall of the whole texture {res['texture_s']:.3f} s "
+          f"(utils/raster.fill_poly) against {cv2_s:.3f} s (cv2.fillPoly)")
+    text_port = raster.put_text(np.zeros_like(text_cv2), printable, (10, 16), 255)
+    same = np.array_equal(text_port, text_cv2)
+    phase(f"22 cv2 {version} here: its putText of the 95 printable characters "
+          f"{'equals' if same else 'differs from'} utils/raster.put_text's "
+          f"({int((text_port != text_cv2).sum())} pixels differ; cv2 draws "
+          f"{len(np.unique(text_cv2))} grey levels, the port's cv2 5.x glyph table "
+          f"{len(np.unique(text_port))}); not required: the text is cv2 5.x's")
 
 
 def phase_tools(card: str, port) -> None:
@@ -930,7 +1085,8 @@ def main() -> int:
     phase(f"1 device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     phase(f"1 cv2 importable here: {importlib.util.find_spec('cv2') is not None} "
-          f"(the port needs none: utils.imageio reads PNGs, the remap is its own)")
+          f"(the port needs none: utils.imageio reads and writes PNGs, the remap and the "
+          f"drawing are its own)")
 
     # phase 2 -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1453,6 +1609,7 @@ def main() -> int:
     phase_entry_and_bench(card)
     phase_graphs(frames, est, rgbd_frames, fisheye_program, card, port, bench)
     phase_tools(card, port)
+    phase_viewer_and_texture(card, port)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu"))
     phase(f"modules of JAX or the JAX package loaded: {leaked or 'none'}")

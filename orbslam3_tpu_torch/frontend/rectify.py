@@ -8,7 +8,8 @@ cv::stereoRectify / cv::initUndistortRectifyMap / cv::remap; here the
 transforms and maps are re-derived in vectorized NumPy (validated against
 cv2 in tests/test_rectify.py) so the framework is self-contained, and the
 per-frame remap is OpenCV's INTER_LINEAR kernel reproduced bit for bit as
-torch ops on an explicit device (`remap_bilinear`); no cv2 is needed.
+torch ops on an explicit device (`remap_bilinear`), on CUDA one CUDA graph
+replay a frame (`StereoRectifier.rectify`); no cv2 is needed.
 
 Pipeline position: rectification runs BEFORE the device extractor —
 exactly the reference's placement, on the System's device — so the
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from orbslam3_tpu_torch._device import resolve_device
+from orbslam3_tpu_torch.utils.frame_graph import TableModule
 from orbslam3_tpu_torch.utils.lie import so3_exp, so3_log
 
 
@@ -252,14 +254,22 @@ class StereoRectifier:
 
     def rectify(self, img_l: np.ndarray, img_r: np.ndarray, device: str | torch.device = "cuda"):
         """Both images remapped on `device` -> two uint8 (H, W) tensors
-        there; the maps move to a device once."""
+        there.  The maps move to a device once, as the buffers of a
+        `TableModule`; on CUDA the remap of the pair is that module's CUDA
+        graph "remap", captured at the first call and replayed on the
+        caller's stream for every later one (a capture that fails raises);
+        on the CPU the remap runs itself."""
         dev = resolve_device(device)
-        on_device = self.__dict__.setdefault("_device_maps", {})  # torch.device -> maps
+        on_device = self.__dict__.setdefault("_device_maps", {})  # torch.device -> TableModule
         maps = on_device.get(dev)
         if maps is None:  # (2, H, W) x and y maps of both cameras
-            maps = tuple(torch.from_numpy(np.stack(m)).to(dev)
-                         for m in ((self.map1x, self.map2x), (self.map1y, self.map2y)))
-            on_device[dev] = maps
+            maps = on_device[dev] = TableModule({
+                "mapx": np.stack([self.map1x, self.map2x]),
+                "mapy": np.stack([self.map1y, self.map2y]),
+            }).to(dev)
         pair = torch.from_numpy(np.ascontiguousarray(np.stack([img_l, img_r])))
-        left, right = remap_bilinear(pair.to(dev, non_blocking=True), *maps).unbind(0)
+        left, right = maps.replay(
+            "remap", lambda x: remap_bilinear(x, maps.mapx, maps.mapy),
+            pair.to(dev, non_blocking=True),
+        ).unbind(0)
         return left, right

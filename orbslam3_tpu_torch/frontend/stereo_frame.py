@@ -47,10 +47,10 @@ import torch
 from orbslam3_tpu_torch.oracle.orb_cpu import PyramidParams
 from orbslam3_tpu_torch.ops.extractor import (
     PACK_COLS,
+    ExtractorTables,
     FrameFeatures,
     FusedKernels,
     MergedComposites,
-    TableModule,
     build_merged_composites,
     detection_crops,
     extract_from_pyramids,
@@ -185,7 +185,7 @@ def _pack_features(out: StereoFrameFeatures) -> torch.Tensor:
     return pack_features(out.left, out.u_right, out.depth)
 
 
-class StereoFrontEnd(TableModule):
+class StereoFrontEnd(ExtractorTables):
     """The stereo front-end of one image geometry, its constant tables held
     as buffers on the module's device.  `forward(pair)` takes a (2, H, W)
     uint8 tensor and returns the (K, 40) f32 packed block: on CUDA one

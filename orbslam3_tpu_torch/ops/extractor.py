@@ -54,7 +54,7 @@ from orbslam3_tpu_torch.ops.pyramid import (
 )
 from orbslam3_tpu_torch.ops.select import select_topk_grid_multi
 from orbslam3_tpu_torch.ops.window_gather import gather_windows_many
-from orbslam3_tpu_torch.utils.frame_graph import FrameGraph
+from orbslam3_tpu_torch.utils.frame_graph import TableModule
 
 
 class FusedKernels(NamedTuple):
@@ -438,40 +438,11 @@ def pack_features(
     return torch.cat([torch.stack(cols, dim=1), f.desc.to(torch.float32)], dim=1)
 
 
-class TableModule(torch.nn.Module):
-    """Constant tables of one image geometry, held as module buffers so
-    `.to(device)` moves them all, and the CUDA graphs of the module's frame
-    programs (`replay`), captured at their first CUDA call.  A graph reads
-    the buffers at the addresses they had at its capture, so moving or
-    casting the module drops its graphs; the next CUDA call captures anew."""
-
-    def __init__(self, tables: dict[str, np.ndarray]):
-        super().__init__()
-        for name, arr in tables.items():
-            self.register_buffer(name, torch.from_numpy(np.ascontiguousarray(arr)))
-        self.graphs: dict[str, FrameGraph] = {}
-
-    def _apply(self, fn, *args, **kwargs):
-        # `.to()`, `.cuda()`, `.half()` ... reallocate the buffers
-        out = super()._apply(fn, *args, **kwargs)
-        self.graphs = {}
-        return out
+class ExtractorTables(TableModule):
+    """A `TableModule` that holds an extractor's resize taps."""
 
     def resize_taps(self) -> ResizeTaps:
         return ResizeTaps(*(getattr(self, f"resize_{f}") for f in ResizeTaps._fields))
-
-    def replay(self, name: str, program, x: torch.Tensor, out: torch.Tensor | None = None):
-        """program(x) (into `out` if given): on a CUDA tensor the replay of
-        the module's graph `name`, captured from `program` at its first
-        call; on a CPU tensor, where the caller asked for the CPU, the
-        program itself."""
-        if x.device.type == "cpu":
-            result = program(x)
-            return result if out is None else out.copy_(result)
-        graph = self.graphs.get(name)
-        if graph is None:
-            graph = self.graphs.setdefault(name, FrameGraph(program, x.device))
-        return graph(x, out)
 
 
 def extraction_tables_np(params: PyramidParams, image_hw: tuple, n_cams: int) -> dict:
@@ -525,7 +496,7 @@ def split_lapping(feat_np: dict, lapping: tuple[float, float]) -> tuple[np.ndarr
     return order, int((~in_lap).sum())
 
 
-class FeatureExtractor(TableModule):
+class FeatureExtractor(ExtractorTables):
     """The ORB extractor of one camera geometry (the reference's
     `extract_features_jit` for one image shape), its constant tables held
     as buffers on the module's device.  `forward(image)` takes an (H, W)

@@ -40,6 +40,9 @@ class LoopClosing:
         # processes inline for determinism
         self.sequential = True
         self.kf_queue: queue.Queue = queue.Queue()
+        # sequential mode: keyframes the tracker's frame made, handled once
+        # the frame is logged (run_held)
+        self.held: list = []
         self.finished = False
         # LocalMapping handle for the pause handshake around corrections
         # (reference member mpLocalMapper; set by System)
@@ -66,9 +69,19 @@ class LoopClosing:
         if kf.id == 0:
             return
         if self.sequential:
-            self._handle(kf)
+            # held until the tracker has logged the frame that made it, as
+            # upstream's Track() records the frame before its LoopClosing
+            # thread takes the keyframe: a merge or a correction moves the
+            # frame's reference keyframe, and the frame's pose, still in
+            # the old coordinates, would be logged against the moved one
+            self.held.append(kf)
         else:
             self.kf_queue.put(kf)
+
+    def run_held(self):
+        """Sequential mode: handle the held keyframes, in order."""
+        while self.held:
+            self._handle(self.held.pop(0))
 
     def spin(self):
         """Worker-thread loop (LoopClosing::Run role)."""

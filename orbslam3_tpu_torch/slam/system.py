@@ -767,6 +767,8 @@ class System:
             self.tracker._ini_frame = None
             if self.kf_database is not None:
                 self.kf_database.clear()
+            if self.loop_closer is not None:
+                self.loop_closer.held.clear()  # keyframes of the old Atlas
         finally:
             self.local_mapper.resume()
 
@@ -820,6 +822,7 @@ class System:
         if self._mapper_thread is not None:
             self._mapper_thread.join()
         if self.loop_closer is not None:
+            self.loop_closer.run_held()  # sequential mode: none is held between frames
             self.loop_closer.request_finish()
         if self._loop_thread is not None:
             self._loop_thread.join()

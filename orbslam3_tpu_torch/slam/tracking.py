@@ -124,7 +124,13 @@ class Tracking:
             m = self.atlas.get_current_map()
             with m.update_lock:
                 if self.atlas.get_current_map() is m:
-                    return self._track_frame_locked(frame)
+                    pose = self._track_frame_locked(frame)
+                    break
+        # sequential mode: the loop closer takes the frame's keyframes now
+        # that the frame is logged (LoopClosing.insert_keyframe)
+        if self.local_mapper.loop_closer is not None:
+            self.local_mapper.loop_closer.run_held()
+        return pose
 
     def _track_frame_locked(self, frame: Frame) -> SE3 | None:
         # timestamp-jump detection (Tracking3.cc:66-104): a frame older than

@@ -51,6 +51,7 @@ from __future__ import annotations
 import threading
 import time
 
+import numpy as np
 import torch
 
 from orbslam3_tpu_torch.utils import launches
@@ -144,3 +145,37 @@ class FrameGraph:
         self.static_out = static_out
         self.graph = graph
         return result
+
+
+class TableModule(torch.nn.Module):
+    """Constant tables (an extractor's taps and masks, a rectifier's maps),
+    held as module buffers so `.to(device)` moves them all, and the CUDA
+    graphs of the module's frame programs (`replay`), captured at their
+    first CUDA call.  A graph reads
+    the buffers at the addresses they had at its capture, so moving or
+    casting the module drops its graphs; the next CUDA call captures anew."""
+
+    def __init__(self, tables: dict[str, np.ndarray]):
+        super().__init__()
+        for name, arr in tables.items():
+            self.register_buffer(name, torch.from_numpy(np.ascontiguousarray(arr)))
+        self.graphs: dict[str, FrameGraph] = {}
+
+    def _apply(self, fn, *args, **kwargs):
+        # `.to()`, `.cuda()`, `.half()` ... reallocate the buffers
+        out = super()._apply(fn, *args, **kwargs)
+        self.graphs = {}
+        return out
+
+    def replay(self, name: str, program, x: torch.Tensor, out: torch.Tensor | None = None):
+        """program(x) (into `out` if given): on a CUDA tensor the replay of
+        the module's graph `name`, captured from `program` at its first
+        call; on a CPU tensor, where the caller asked for the CPU, the
+        program itself."""
+        if x.device.type == "cpu":
+            result = program(x)
+            return result if out is None else out.copy_(result)
+        graph = self.graphs.get(name)
+        if graph is None:
+            graph = self.graphs.setdefault(name, FrameGraph(program, x.device))
+        return graph(x, out)

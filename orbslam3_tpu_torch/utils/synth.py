@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from orbslam3_tpu_torch.utils.lie import SE3, so3_exp, so3_log
+from orbslam3_tpu_torch.utils.raster import fill_poly
 
 
 def _smooth_noise(size: int, coarse: int, rng) -> np.ndarray:
@@ -48,28 +49,20 @@ def make_texture(size: int = 2048, seed: int = 0) -> np.ndarray:
     #  - identical axis-aligned primitives make *different* corners look
     #    alike (Hamming 30-60), and those aliased matches pass TH_HIGH and
     #    feed a drift-consistent wrong pose (found the hard way).
-    try:
-        import cv2
-
-        img8 = np.clip(img, 0, 255).astype(np.uint8)
-        for _ in range(size):
-            cx, cy = rng.integers(12, size - 12, 2)
-            n_v = int(rng.integers(3, 7))
-            radius = rng.uniform(2.5, 11.0)
-            angs = np.sort(rng.uniform(0, 2 * np.pi, n_v))
-            pts = np.stack(
-                [cx + radius * np.cos(angs), cy + radius * rng.uniform(0.4, 1.6) * np.sin(angs)],
-                axis=1,
-            ).astype(np.int32)
-            v = int(rng.integers(0, 256))
-            cv2.fillPoly(img8, [pts], v)
-        return img8
-    except ImportError:
-        for _ in range(3 * size):
-            cx, cy = rng.integers(6, size - 14, 2)
-            rw, rh = int(rng.integers(2, 9)), int(rng.integers(2, 9))
-            img[cy : cy + rh, cx : cx + rw] = int(rng.integers(0, 256))
-        return np.clip(img, 0, 255).astype(np.uint8)
+    # cv2.fillPoly's pixels, drawn in numpy (utils/raster.py)
+    img8 = np.clip(img, 0, 255).astype(np.uint8)
+    for _ in range(size):
+        cx, cy = rng.integers(12, size - 12, 2)
+        n_v = int(rng.integers(3, 7))
+        radius = rng.uniform(2.5, 11.0)
+        angs = np.sort(rng.uniform(0, 2 * np.pi, n_v))
+        pts = np.stack(
+            [cx + radius * np.cos(angs), cy + radius * rng.uniform(0.4, 1.6) * np.sin(angs)],
+            axis=1,
+        ).astype(np.int32)
+        v = int(rng.integers(0, 256))
+        fill_poly(img8, pts, v)
+    return img8
 
 
 class PlaneWorld:

@@ -25,6 +25,16 @@ import threading
 
 import numpy as np
 
+from orbslam3_tpu_torch.utils import imageio
+from orbslam3_tpu_torch.utils.raster import (
+    circle_pixels,
+    line_pixels,
+    put_text,
+    rectangle_pixels,
+    stamp,
+    unique_offsets,
+)
+
 
 class FrameDrawer:
     """Overlay renderer with a snapshot stage (FrameDrawer::Update /
@@ -57,28 +67,27 @@ class FrameDrawer:
         )
 
     def draw_snapshot(self) -> np.ndarray | None:
-        import cv2
-
+        """The overlay as cv2 5.x draws it, pixel for pixel, in numpy
+        (utils/raster.py): the grey image as BGR; per keypoint in order, a
+        matched one a 7x7 rectangle of thickness 1 and a filled radius-1
+        circle in green, any other the circle in grey, each clipped to the
+        image; the status line in FONT_HERSHEY_PLAIN at scale 1,
+        anti-aliased as cv2 5.x draws it (cv2 4.x draws it without)."""
         if self._snap is None:
             return None
         image, kps, matched, state, stats, inliers = self._snap
-        img = cv2.cvtColor(image, cv2.COLOR_GRAY2BGR)
-        if kps is not None:
-            for i in range(len(kps)):
-                x, y = int(kps[i, 0]), int(kps[i, 1])
-                if matched[i]:
-                    cv2.rectangle(
-                        img, (x - 3, y - 3), (x + 3, y + 3), (0, 255, 0), 1
-                    )
-                    cv2.circle(img, (x, y), 1, (0, 255, 0), -1)
-                else:
-                    cv2.circle(img, (x, y), 1, (120, 120, 120), -1)
+        img = np.repeat(image.reshape(*image.shape[:2], 1), 3, axis=2)  # GRAY2BGR
+        if kps is not None and len(kps):
+            dot = circle_pixels((0, 0), 1)
+            marks = [unique_offsets(dot), unique_offsets(rectangle_pixels((-3, -3), (3, 3)), dot)]
+            colors = np.where(matched[:, None], np.uint8([0, 255, 0]), np.uint8([120, 120, 120]))
+            xy = np.stack([kps[:, 0], kps[:, 1]], axis=1).astype(np.int64)  # int(): toward zero
+            stamp(img, xy, marks, colors, matched.astype(np.int64))
         txt = (
             f"{state}  KFs: {stats['n_keyframes']}  MPs: {stats['n_map_points']}"
             f"  inliers: {inliers}"
         )
-        cv2.putText(img, txt, (10, img.shape[0] - 10), cv2.FONT_HERSHEY_PLAIN, 1,
-                    (255, 255, 255), 1)
+        put_text(img, txt, (10, img.shape[0] - 10), (255, 255, 255))
         return img
 
     def draw(self, image: np.ndarray) -> np.ndarray:
@@ -92,36 +101,40 @@ class MapDrawer:
         self.system = system
 
     def render(self, path: str):
-        import matplotlib
-
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
+        """A plan view of the current map as an 880x660 BGR PNG, drawn and
+        written in numpy (no matplotlib, whose PNG writer needs PIL): x to
+        the right, z up, scaled to fit; map points grey, the keyframe
+        centres in blue joined in the map's order, each keyframe's three
+        best covisibility edges in green."""
+        w, h = 880, 660
+        img = np.full((h, w, 3), 255, np.uint8)
         m = self.system.atlas.get_current_map()
-        fig = plt.figure(figsize=(8, 6))
-        ax = fig.add_subplot(111, projection="3d")
-        mps = m.get_all_map_points()
-        if mps:
-            pts = np.stack([mp.position for mp in mps])
-            ax.scatter(pts[:, 0], pts[:, 2], -pts[:, 1], s=0.5, c="k", alpha=0.4)
+        pts = np.array([mp.position for mp in m.get_all_map_points()]).reshape(-1, 3)
         kfs = m.get_all_keyframes()
-        if kfs:
-            centers = np.stack([kf.camera_center() for kf in kfs])
-            ax.plot(centers[:, 0], centers[:, 2], -centers[:, 1], "b-", lw=1)
-            ax.scatter(centers[:, 0], centers[:, 2], -centers[:, 1], s=8, c="b")
-            # covisibility edges
-            for kf in kfs:
-                c0 = kf.camera_center()
-                for nb in kf.get_best_covisibility_keyframes(3):
-                    c1 = nb.camera_center()
-                    ax.plot([c0[0], c1[0]], [c0[2], c1[2]], [-c0[1], -c1[1]],
-                            "g-", lw=0.3, alpha=0.5)
-        ax.set_xlabel("x")
-        ax.set_ylabel("z")
-        ax.set_zlabel("-y")
-        fig.tight_layout()
-        fig.savefig(path, dpi=110)
-        plt.close(fig)
+        centers = np.array([kf.camera_center() for kf in kfs]).reshape(-1, 3)
+        every = np.concatenate([pts, centers])
+        every = every[np.isfinite(every).all(axis=1)]
+        if len(every):
+            lo, hi = every[:, [0, 2]].min(axis=0), every[:, [0, 2]].max(axis=0)
+            scale = min((w - 41) / max(hi[0] - lo[0], 1e-9), (h - 41) / max(hi[1] - lo[1], 1e-9))
+
+            def px(p):
+                p = np.nan_to_num(np.asarray(p, np.float64).reshape(-1, 3))
+                x = 20 + (p[:, 0] - lo[0]) * scale
+                y = h - 21 - (p[:, 2] - lo[1]) * scale
+                return np.stack([x, y], axis=1).round().clip(-1, max(w, h)).astype(np.int64)
+
+            stamp(img, px(pts), np.zeros((1, 2), np.int64), (160, 160, 160))
+            c = px(centers)
+            index = {id(kf): i for i, kf in enumerate(kfs)}
+            segments = [(index[id(kf)], index[id(nb)], (0, 160, 0)) for kf in kfs
+                        for nb in kf.get_best_covisibility_keyframes(3) if id(nb) in index]
+            segments += [(i - 1, i, (255, 0, 0)) for i in range(1, len(kfs))]
+            for a, b, colour in segments:
+                xs, ys = line_pixels(c[a], c[b], (w, h))
+                img[ys, xs] = colour
+            stamp(img, c, unique_offsets(circle_pixels((0, 0), 2)), (255, 0, 0))
+        imageio.imwrite(path, img)
 
 
 class Viewer:
@@ -209,12 +222,10 @@ class Viewer:
                 return
 
     def _render_one(self):
-        import cv2
-
         img = self.frame_drawer.draw_snapshot()
         if img is None:
             return
-        cv2.imwrite(os.path.join(self.out_dir, f"frame_{self.count:05d}.png"), img)
+        imageio.imwrite(os.path.join(self.out_dir, f"frame_{self.count:05d}.png"), img)
         if self.count % self.map_every == 0:
             self.map_drawer.render(
                 os.path.join(self.out_dir, f"map_{self.count:05d}.png")
@@ -232,10 +243,8 @@ class Viewer:
                 self._pending = True
             self._wake.set()
             return
-        import cv2
-
         img = self.frame_drawer.draw(image)
-        cv2.imwrite(os.path.join(self.out_dir, f"frame_{self.count:05d}.png"), img)
+        imageio.imwrite(os.path.join(self.out_dir, f"frame_{self.count:05d}.png"), img)
         if self.count % self.map_every == 0:
             self.map_drawer.render(
                 os.path.join(self.out_dir, f"map_{self.count:05d}.png")

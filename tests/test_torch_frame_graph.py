@@ -11,9 +11,13 @@ op reads a value back to the host and none copies from the host.  No CPU
 test can hold a graph against its eager program; that is done on the
 card only.
 
+The rectifier's remap of a raw pair (`StereoRectifier.rectify`): on the
+CPU its map holder runs it eagerly and equals `remap_bilinear`; on the
+meta device it reads nothing back and uploads nothing.
+
 On the card (`cuda`-marked, skipped without one): graphed equal to eager
-bit for bit for each program the System runs, with the same launches per
-frame, every batch row equal to a single frame, prefetch on the side
+bit for bit for each program the System runs and for the rectifier's
+remap, with the same launches per frame, every batch row equal to a single frame, prefetch on the side
 stream interleaved with track_stereo, and a program with an `.item()`
 failing its capture with nothing run eagerly in its place.  The file
 needs no fixture of conftest.py, so on a machine without JAX:
@@ -32,7 +36,7 @@ from orbslam3_tpu_torch.frontend import stereo_frame as sf
 from orbslam3_tpu_torch.ops import brief, extractor as ex, fast, orientation
 from orbslam3_tpu_torch.ops import window_gather as wg
 from orbslam3_tpu_torch.utils import launches
-from orbslam3_tpu_torch.utils.frame_graph import FrameGraph
+from orbslam3_tpu_torch.utils.frame_graph import FrameGraph, TableModule
 
 MBF, FX = 15.0, 150.0
 # the flat geometry at a small size, and one that is not flat (the top
@@ -262,6 +266,57 @@ def test_capture_probe_sees_a_read_back_and_an_upload():
     assert any(r.startswith("aten._local_scalar_dense") for r in probe.refused), probe.refused
 
 
+# --- the rectifier's remap ------------------------------------------------
+RIG_HW = (120, 160)
+
+
+def _rig():
+    """A distorted stereo rig (EuRoC's radtan coefficients, the right
+    camera turned a few mrad), its rectifier and three raw pairs."""
+    from orbslam3_tpu_torch.frontend.rectify import StereoRectifier
+    from orbslam3_tpu_torch.utils.lie import SE3, so3_exp
+
+    h, w = RIG_HW
+    cam_l = Pinhole([150.0, 150.0, 80.0, 60.0], [-0.28, 0.07, 0.0002, 0.00002])
+    cam_r = Pinhole([151.0, 149.5, 82.0, 59.0], [-0.27, 0.075, -0.0001, -0.00003])
+    t_rl = SE3(so3_exp(np.array([0.004, -0.006, 0.002])), np.array([-0.11, 0.001, -0.0008]))
+    frames = stereo_sequence(3, cam_l, 0.11, h, w, seed=3, camera_r=cam_r, T_rl=t_rl)
+    return StereoRectifier(cam_l, cam_r, t_rl.inverse(), (w, h)), [f[:2] for f in frames]
+
+
+def _eager_remap(rect, raw, device):
+    from orbslam3_tpu_torch.frontend.rectify import remap_bilinear
+
+    maps = [torch.from_numpy(np.stack(m)).to(device)
+            for m in ((rect.map1x, rect.map2x), (rect.map1y, rect.map2y))]
+    return remap_bilinear(torch.from_numpy(np.stack(raw)).to(device), *maps)
+
+
+def test_rectifier_remap_holder_on_the_cpu_runs_the_remap():
+    """On the CPU the rectifier's map holder (a TableModule) runs the
+    remap itself, keeps no graph, and equals the eager remap."""
+    rect, pairs = _rig()
+    for raw in pairs:
+        got = rect.rectify(*raw, "cpu")
+        assert all(g.dtype == torch.uint8 and tuple(g.shape) == RIG_HW for g in got)
+        assert torch.equal(torch.stack(got), _eager_remap(rect, raw, "cpu"))
+    holder = rect._device_maps[torch.device("cpu")]
+    assert isinstance(holder, TableModule) and holder.graphs == {}
+    assert torch.equal(holder.mapx[0], torch.from_numpy(rect.map1x))
+
+
+def test_rectifier_remap_reads_nothing_back_and_uploads_nothing():
+    from orbslam3_tpu_torch.frontend.rectify import remap_bilinear
+
+    pair = torch.empty((2, *RIG_HW), dtype=torch.uint8, device="meta")
+    mapx, mapy = (torch.empty((2, *RIG_HW), dtype=torch.float32, device="meta") for _ in range(2))
+    with _CaptureProbe() as probe:
+        out = remap_bilinear(pair, mapx, mapy)
+    assert tuple(out.shape) == (2, *RIG_HW) and out.dtype == torch.uint8
+    assert probe.ops > 20
+    assert not probe.refused, probe.refused
+
+
 # --- on the card ----------------------------------------------------------
 
 
@@ -356,3 +411,15 @@ def test_capture_with_a_host_read_raises_and_never_runs_eagerly(card):
     assert len(calls) == 4
     assert launches.snapshot() == before
     assert torch.equal(x + 1, torch.arange(1, 9, dtype=torch.float32, device=card))
+
+
+@pytest.mark.cuda
+def test_rectifier_remap_graph_equals_eager_on_card(card):
+    """The rectifier's remap: captured at the first call, replayed after
+    it, bit for bit the eager remap; moving nothing, it keeps its graph."""
+    rect, pairs = _rig()
+    for raw in pairs:
+        got = torch.stack(rect.rectify(*raw, card))
+        assert torch.equal(got, _eager_remap(rect, raw, card))
+    graph = rect._device_maps[card].graphs["remap"]
+    assert graph.replays == len(pairs) - 1

@@ -9,14 +9,14 @@ asserted bit-identical: no tolerance is needed.  The torch dense matcher
 (`search_by_projection_batch`, the reference's is JAX) must equal the
 reference's integers, ties included.  One port `System` and one reference
 `System` track the same 10-frame stereo sequence; an atlas the reference
-saves loads into the port.  Thirty-six of the copies differ from the
+saves loads into the port.  Thirty-four of the copies differ from the
 reference in nothing but the package's name and the upstream C++ paths
-their comments cite, and six besides only in named seams: the
-definitions that replace cv2 (`frontend/rectify.py`, `optim/two_view.py`),
-and the threaded back-end's repairs (`slam/map_point.py`,
-`slam/local_mapping.py`, `slam/loop_closing.py`, `slam/tracking.py`,
-whose seams also hold the dense matcher's device); a test holds each to
-that.
+their comments cite, and eight besides only in named seams: the
+definitions that replace cv2 (`frontend/rectify.py`, `optim/two_view.py`,
+`utils/synth.py`, `utils/viewer.py`), and the back-end's repairs
+(`slam/map_point.py`, `slam/local_mapping.py`, `slam/loop_closing.py`,
+`slam/tracking.py`, whose seams also hold the dense matcher's device); a
+test holds each to that.
 """
 
 import ast
@@ -77,10 +77,21 @@ SEAMS = {
         "TwoViewReconstruction.reconstruct",
     ),
     "slam/map_point.py": ("MapPoint.replace",),
+    # drawn in numpy (utils/raster.py) and written by utils/imageio, not cv2
+    "utils/synth.py": ("imports", "make_texture"),
+    "utils/viewer.py": (
+        "imports", "FrameDrawer.draw_snapshot", "MapDrawer.render", "Viewer._render_one",
+        "Viewer.update",
+    ),
     # the threaded back-end's map locking: both maps locked through a
     # merge, the mapper's queue emptied first, stale loop matches
-    # resolved, a frame tracking under the current map's lock
-    "slam/loop_closing.py": ("imports", "LoopClosing._handle", "LoopClosing.correct_loop"),
+    # resolved, a frame tracking under the current map's lock; the
+    # sequential loop closer holds a frame's keyframes until the tracker
+    # has logged the frame (run_held)
+    "slam/loop_closing.py": (
+        "imports", "LoopClosing.__init__", "LoopClosing.insert_keyframe", "LoopClosing.run_held",
+        "LoopClosing._handle", "LoopClosing.correct_loop",
+    ),
     "slam/local_mapping.py": ("LocalMapping.spin",),
     "slam/tracking.py": (
         "Tracking.__init__", "Tracking._search_local_points", "Tracking.track_frame",
