@@ -20,13 +20,22 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      not a multiple of a block's windows, windows under 4 columns, 48x128
      and larger windows, two jobs of different shapes in one launch, two
      jobs whose grids differ by 2^20 blocks); and the launch floor, one
-     in-place add on one element in the same CUDA-graph harness;
+     in-place add on one element in the same CUDA-graph harness; then K1
+     (the selection's candidate pools), K2 (the stereo Hamming match) and
+     K3 (the SAD refinement and median filter), bit for bit against their
+     twins on the main path's inputs (a stereo frame's 16 score maps and
+     the mono initialisation's 5000-feature call for K1, the frame's
+     features, pair block and strips for K2 and K3) and at the edge cases
+     of orbslam3_tpu_torch/tools/bench_match_kernels.py (K = 1, K not a
+     multiple of a block, K = 2000, every slot invalid, rows with no valid
+     pair, distance and slide ties, n_ok = 0 and one ok slot, odd cells,
+     views, 32 and 40 maps), each timed (device time, bound, share, twin);
   4. the stereo tracking path through its entry points: System.track_stereo
      over a 30-frame synthetic sequence, save_trajectory_tum, shutdown —
-     every frame tracked, ATE RMSE under 1 cm, one B1 and two B2 launches
-     per frame, and no JAX in the process (each frame's front-end is one
-     replay of its CUDA graph, captured at frame 0; the launches are
-     counted under replay, as in every later phase);
+     every frame tracked, ATE RMSE under 1 cm, one B1, two B2, two K1, one
+     K2 and two K3 launches per frame, and no JAX in the process (each
+     frame's front-end is one replay of its CUDA graph, captured at frame
+     0; the launches are counted under replay, as in every later phase);
   5. the whole front-end on the card against the same code on the CPU;
   6. torch.profiler: the front-end's device-busy time per frame by device
      op, eager (op by op) and graphed side by side (full tables in
@@ -48,8 +57,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
   8. System.track_monocular over every second frame of the sequence under
      FusedKernels(True, True, True) (the 5x init extractor takes 5000
      features): tracking OK, >= 6 poses, Sim3 ATE under 5 cm, one B3, one
-     B4 and one B5 rBRIEF launch per frame, and no B1, B2 or B5 index
-     launch;
+     B4, one B5 rBRIEF and two K1 launches per frame, and no other;
   9. System.track_rgbd over a 30-frame synthetic RGB-D sequence under the
      same configuration: every frame tracked, ATE under 1 cm, the same
      launch counts;
@@ -79,25 +87,27 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      over 40 rendered frames: every frame tracked, visual-inertial
      initialisation done, ATE RMSE under 1.2 cm (printed beside the JAX
      package's on the same frames), map points observed by both cameras,
-     one B1 and one B2 launch per frame (the fisheye path runs no
-     rectified left-right matcher); extract_fisheye_pair on the card
+     one B1, one B2 and two K1 launches per frame (the fisheye path runs
+     no rectified left-right matcher: no K2, no K3); extract_fisheye_pair
+     on the card
      against the CPU (integers equal, angles and descriptors within the
      trig bound) and under FusedKernels(True, True, True) equal to the
      default;
  15. batched prefetch: prefetch_stereo_batch over phase 4's sequence in
      windows of 8 frames (the last one 6), each handle consumed in order by
      track_stereo_prefetched: phase 4's poses bit for bit and its map
-     statistics, one B1 and two B2 launches per frame; its stream window per
+     statistics, phase 4's launches per frame; its stream window per
      frame beside the per-frame front-end's, measured just before and after;
  16. the stereo front-end on a geometry that is not flat (120x160, 1000
      features: each camera through the per-level extractor): the card
      against the CPU (integers equal, angles, descriptors, u_right and
-     depth as phase 5), one B1 and three B2 launches;
+     depth as phase 5), one B1, three B2, four K1 (a selection per camera),
+     one K2 and two K3 launches;
  17. the EuRoC driver (orbslam3_tpu_torch.examples.run_euroc) on a EuRoC
      ASL tree written here with utils.imageio: 30 frames of a distorted
      752x480 rig at MH01's calibration and imu0; stereo, stereo-inertial
      and --batch 8, each with every frame in its trajectory file, ATE under
-     2 cm through tools.evaluate_ate, one B1 and two B2 launches a frame;
+     2 cm through tools.evaluate_ate, phase 4's launches a frame;
      PNG decode, device remap, tracking and the driver's wall ms per frame
      printed, the remap on the card equal to the CPU's; the rectifier's
      remap as a CUDA graph (captured at a fresh rectifier's first frame,
@@ -105,8 +115,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      every frame, its time a pair graphed and eager (CUDA events);
  18. the TUM-RGBD driver under --fused detect,moments,sample on phase 9's
      sequence as a TUM tree (colour read as grey, 16-bit depth): every
-     frame, ATE under 2 cm, one B3, one B4 and one B5 rBRIEF launch a
-     frame;
+     frame, ATE under 2 cm, one B3, one B4, one B5 rBRIEF and two K1
+     launches a frame;
  19. the entry hook's step on the card against the CPU (integers equal),
      and the bench's measurement at 16 frames, its headline printed (the
      graphed front-end) beside the eager stream window;
@@ -126,12 +136,13 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      in its place;
  21. the tools that measure the whole System (orbslam3_tpu_torch/tools):
      bench_system at 60 frames (the threaded System with the prefetch
-     pipeline: every frame tracked, ATE under 1 cm, one B1 and two B2
-     launches a frame), every stage of bench_stages (device ms per call,
+     pipeline: every frame tracked, ATE under 1 cm, phase 4's launches a
+     frame), every stage of bench_stages (device ms per call,
      CUDA graph of 20 calls), bench_matchers at every size (500 to 100000
      candidates; at each the device matcher returns the host matcher's
-     matches), and trace_ops on one frame: its graphed frame's top 10
-     kernels (the whole report in chiprun_out/chip_smoke_trace_ops.txt).
+     matches), and trace_ops on one frame: its graphed frame's node count,
+     busy time and largest gap, and its top 10 kernels (the whole report
+     in chiprun_out/chip_smoke_trace_ops.txt).
      Each result on its own line beside the card's name and power limit;
  22. in a process that refuses cv2, PIL and matplotlib (and JAX): System.from_files(
      use_viewer=True) on phase 17's rig tracks 4 stereo frames and its
@@ -148,11 +159,12 @@ Phase 1 also prints whether cv2 is importable (the port needs none).
 Phase 2 also requires the port's native host library to build
 (`native.available()`).  Last, no module of JAX or of the JAX package may
 be loaded.  The line before last is the JSON kernel report (launches:
-phase 4's for B1 and B2, phases 8 and 9's for B3, B4 and B5's rBRIEF mode,
+phase 4's for B1, B2, K1, K2 and K3, phases 8 and 9's for B3, B4 and B5's rBRIEF mode,
 phase 7's check pass for B5's index mode and phase 12's for T1-T4, which
 no tracking path runs; bounds computed from this run's shapes and, for the
 window kernels B2, B4 and B5, from the distinct image bytes this run's
-windows cover or its picks read), the last line the JSON result.  Imports
+windows cover or its picks read, for K2 from the pairs this run's frame
+passes), the last line the JSON result.  Imports
 nothing of JAX.
 """
 
@@ -206,8 +218,6 @@ BATCH = 8
 NON_FLAT_HW = (120, 160)
 # the dense matcher's inputs: map points x frame keypoints
 MATCH_M, MATCH_K = 30000, 1000
-# the tracking paths launch none of the A/B variants T1-T4
-NO_T_LAUNCHES = {f"fast_variant_t{i}": 0 for i in range(1, 5)}
 # phase 17: a EuRoC rig at MH01's calibration (cam0 / cam1 intrinsics and
 # radtan distortion), its right camera rotated a few mrad, 0.11 m apart
 EUROC_CAMS = (
@@ -219,7 +229,16 @@ EUROC_BATCH = 8
 # phase 19: the bench's frames at the smoke's reduced count
 BENCH_FRAMES = 16
 TOOL_FRAMES = 60  # bench_system's frames in phase 21
-FUSED_PER_FRAME = {"detect_fused": 1, "window_moments": 1, "brief_descriptors": 1}
+# kernel launches a frame: a rectified stereo frame (B1, two B2, K1's two,
+# K2, K3's two), the fused mono / RGB-D paths (B3, B4, B5 rBRIEF and K1's
+# two), the fisheye path (no left-right matcher) and a stereo frame on a
+# geometry that is not flat (one selection per camera, three B2)
+STEREO_PER_FRAME = {"fast_score": 1, "gather_windows": 2, "grid_pool": 2, "stereo_hamming": 1,
+                    "sad_refine": 2}
+FUSED_PER_FRAME = {"detect_fused": 1, "window_moments": 1, "brief_descriptors": 1,
+                   "grid_pool": 2}
+FISHEYE_PER_FRAME = {"fast_score": 1, "gather_windows": 1, "grid_pool": 2}
+NON_FLAT_PER_FRAME = dict(STEREO_PER_FRAME, gather_windows=3, grid_pool=4)
 # the System's own stage records a driver run prints (host wall, or the
 # stream window between CUDA events for `.stream`)
 STAGE_TAGS = (
@@ -374,9 +393,9 @@ def phase_fisheye(card: str, port, bench) -> tuple:
     require(m.imu_initialized, "visual-inertial initialisation never completed")
     require(ate < 0.012, f"fisheye-inertial ATE RMSE {ate} m >= 1.2 cm")
     require(both > 100, f"only {both} map points observed by both cameras")
-    per_frame = {"fast_score": 1, "gather_windows": 1}
-    require(res["launches"] == {k: per_frame.get(k, 0) * N_FISHEYE for k in res["launches"]},
-            f"expected 1 B1 + 1 B2 launches per fisheye frame, got {res['launches']}")
+    require(res["launches"] == {k: FISHEYE_PER_FRAME.get(k, 0) * N_FISHEYE
+                                for k in res["launches"]},
+            f"expected {FISHEYE_PER_FRAME} launches per fisheye frame, got {res['launches']}")
     phase(f"14 kernel launches per frame: "
           f"{ {k: v / N_FISHEYE for k, v in res['launches'].items() if v} }")
 
@@ -457,9 +476,8 @@ def phase_batch(frames, poses, stats, fe_ms, card: str, port, bench) -> None:
     diff = [k for k, (a, b) in enumerate(zip(got, poses)) if not np.array_equal(a.matrix(), b.matrix())]
     require(not diff, f"batched prefetch poses differ from track_stereo's at frames {diff}")
     require(got_stats == stats, f"batched prefetch map {got_stats} != track_stereo's {stats}")
-    require(launches == {k: {"fast_score": 1, "gather_windows": 2}.get(k, 0) * N_FRAMES
-                         for k in launches},
-            f"expected 1 B1 + 2 B2 launches per batch row, got {launches}")
+    require(launches == {k: STEREO_PER_FRAME.get(k, 0) * N_FRAMES for k in launches},
+            f"expected {STEREO_PER_FRAME} launches per batch row, got {launches}")
     phase(f"15 batched prefetch == track_stereo: {N_FRAMES} poses bit for bit, map {got_stats}")
 
 
@@ -490,8 +508,9 @@ def phase_non_flat(port) -> None:
           f"{int((on_cpu[:, 7] > 0).sum())} depths, u_right/depth agree on "
           f"{agree[0]:.4f}/{agree[1]:.4f} of valid slots; launches {launches}")
     require(min(agree) >= 0.99, "u_right/depth agree on < 99 % of valid slots")
-    require(launches == {k: {"fast_score": 1, "gather_windows": 3}.get(k, 0) for k in launches},
-            f"expected 1 B1 + 3 B2 launches (two cameras' windows, the SAD strips), got {launches}")
+    require(launches == {k: NON_FLAT_PER_FRAME.get(k, 0) for k in launches},
+            f"expected {NON_FLAT_PER_FRAME} launches (two cameras' windows and selections, "
+            f"the SAD strips), got {launches}")
 
 
 def _settings_text(cams, w: int, h: int, extra: str) -> str:
@@ -637,7 +656,7 @@ def phase_euroc(card: str, port, bench) -> None:
                 label, lambda: run_euroc.main(seq, settings, None, sensor, device="cuda",
                                               out_dir=out, **kw),
                 N_FRAMES, os.path.join(out, "CameraTrajectory.txt"), gt,
-                {"fast_score": 1, "gather_windows": 2}, port, bench,
+                STEREO_PER_FRAME, port, bench,
             )
         rect = slam.rectifier
         pair = torch.from_numpy(np.stack(frames[0][:2]))
@@ -868,15 +887,14 @@ def phase_tools(card: str, port) -> None:
     require(per_frame["tracked"] == TOOL_FRAMES and per_frame["ate_rmse_m"] < 0.01,
             f"bench_system: {per_frame['tracked']}/{TOOL_FRAMES} tracked, ATE "
             f"{per_frame['ate_rmse_m']} m")
-    require(launches["fast_score"] == TOOL_FRAMES
-            and launches["gather_windows"] == 2 * TOOL_FRAMES,
+    require(launches == {k: STEREO_PER_FRAME.get(k, 0) * TOOL_FRAMES for k in launches},
             f"bench_system: launches {launches} over {TOOL_FRAMES} frames")
     phase(f"21 bench_system kernel launches in the run: {launches}")
 
     stages, lines = _tool_lines(lambda: bench_stages.run())
     for line in lines:
         phase(f"21 bench_stages on {card}: {line}")
-    require(len(stages) == 12 and all(0 < v < 1e3 for v in stages.values()),
+    require(len(stages) == 15 and all(0 < v < 1e3 for v in stages.values()),
             f"bench_stages: {stages}")
 
     for n in bench_matchers.SIZES:
@@ -1069,6 +1087,7 @@ def main() -> int:
     from orbslam3_tpu_torch.frontend import stereo_frame as sf
     from orbslam3_tpu_torch.ops import extractor as ex
     from orbslam3_tpu_torch.ops import brief as tb, fast, pyramid, window_gather as wg
+    from orbslam3_tpu_torch.tools import bench_match_kernels as bmk
     from orbslam3_tpu_torch.tools import bench_score_kernels as bsk
     from orbslam3_tpu_torch.tools import bench_window_kernels as bwk
     from orbslam3_tpu_torch.slam.system import (
@@ -1213,6 +1232,34 @@ def main() -> int:
                                     plain_ms=pdev, bound_ms=bound, bound_by=bound_by,
                                     library_ms=b2_lib)
 
+    # K1, K2 and K3 (tools/bench_match_kernels.py): bit for bit on the main
+    # path's inputs (a stereo frame's 16 score maps and the mono
+    # initialisation's 5000-feature call for K1; the frame's features,
+    # strips and pair block for K2 and K3) and at the edge cases
+    match_inputs = bmk.path_inputs(dev)
+    path = bmk.path_errs(match_inputs)
+    edges = {"grid_pool": bmk.k1_edge_errs(dev), "stereo_hamming": bmk.k2_edge_errs(dev),
+             "sad_refine": bmk.k3_edge_errs(dev)}
+    labels = {"grid_pool": "K1", "stereo_hamming": "K2", "sad_refine": "K3"}
+    match_err = {}
+    for name, label in labels.items():
+        errs = {**path[name], **edges[name]}
+        match_err[name] = max(errs.values())
+        bad = {k: e for k, e in errs.items() if e != 0}
+        require(not bad, f"{label} {name}: kernel != twin at {bad}")
+        phase(f"3 {label} {name}: bit-exact against its twin on the main path "
+              f"({', '.join(path[name])}) and at {len(edges[name])} edge cases "
+              f"({', '.join(edges[name])})")
+    for name, t in bmk.time_kernels(match_inputs).items():
+        extra = {k: v for k, v in t.items()
+                 if k not in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        phase(f"3 {labels[name]} {name} at the main path's shapes (a stereo frame): device time "
+              f"kernel {t['ms']:.4f} ms, twin {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}), share {t['bound_ms'] / t['ms']:.3f}; {extra}")
+        report[name] = dict(max_abs_err=match_err[name], ms=t["ms"], plain_ms=t["plain_ms"],
+                            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+                            **extra)
+
     # phase 4 -------------------------------------------------------------
     sysm = System(camera, mbf, params, device="cuda")
     bench = Benchmark.the()
@@ -1249,10 +1296,9 @@ def main() -> int:
     require(n_ok == N_FRAMES, f"frames not tracked: {[s.name for s in states]}")
     require(len(est) == N_FRAMES and n_saved == N_FRAMES, "missing poses")
     require(ate < 0.01, f"ATE RMSE {ate} m >= 1 cm")
-    require(launches == {"fast_score": N_FRAMES, "gather_windows": 2 * N_FRAMES,
-                         "detect_fused": 0, "window_moments": 0, "sample_windows": 0,
-                         "brief_descriptors": 0, **NO_T_LAUNCHES},
-            f"expected 1 B1 + 2 B2 launches per frame, got {launches}")
+    require(launches == {k: STEREO_PER_FRAME.get(k, 0) * N_FRAMES for k in launches}
+            and set(STEREO_PER_FRAME) <= set(launches),
+            f"expected {STEREO_PER_FRAME} launches per frame, got {launches}")
     require("jax" not in sys.modules, "the port imported JAX")
 
     # phase 5 -------------------------------------------------------------
@@ -1462,9 +1508,7 @@ def main() -> int:
         bound_ms=bound, bound_by=bound_by, library_ms=None)
 
     # phase 8: track_monocular under the fused configuration ---------------
-    per_frame = {"fast_score": 0, "gather_windows": 0, "detect_fused": 1,
-                 "window_moments": 1, "sample_windows": 0, "brief_descriptors": 1,
-                 **NO_T_LAUNCHES}
+    per_frame = {k: FUSED_PER_FRAME.get(k, 0) for k in port.kernel_launches()}
     mono = System(camera, 0.0, params, sensor=System.MONOCULAR, sequential=True,
                   max_frames=8, device="cuda", fused=fused)
     mono_steps = [
@@ -1480,8 +1524,7 @@ def main() -> int:
     require(len(res["est"]) >= 6, "fewer than 6 mono poses")
     require(mono_ate < 0.05, f"mono Sim3 ATE {mono_ate} m >= 5 cm")
     require(res["launches"] == {k: v * n for k, v in per_frame.items()},
-            f"expected 1 B3 + 1 B4 + 1 B5 rBRIEF and no B1/B2/B5 index launch per frame, "
-            f"got {res['launches']}")
+            f"expected {FUSED_PER_FRAME} launches per frame and no other, got {res['launches']}")
     fused_launches = dict(res["launches"])
 
     # phase 9: track_rgbd under the fused configuration --------------------
@@ -1500,8 +1543,7 @@ def main() -> int:
     require(n_ok == N_FRAMES and len(res["est"]) == N_FRAMES, "RGB-D frames not tracked")
     require(rgbd_ate < 0.01, f"RGB-D ATE RMSE {rgbd_ate} m >= 1 cm")
     require(res["launches"] == {k: v * N_FRAMES for k, v in per_frame.items()},
-            f"expected 1 B3 + 1 B4 + 1 B5 rBRIEF and no B1/B2/B5 index launch per frame, "
-            f"got {res['launches']}")
+            f"expected {FUSED_PER_FRAME} launches per frame and no other, got {res['launches']}")
     for k, v in res["launches"].items():
         fused_launches[k] += v
     require("jax" not in sys.modules, "the port imported JAX")
@@ -1640,6 +1682,16 @@ def main() -> int:
              source="orbslam3_tpu_torch/csrc/sample_windows.cu",
              replaces="orbslam3_tpu/ops/window_gather.py:256",
              launches=fused_launches["brief_descriptors"], **report["brief_descriptors"]),
+        dict(name="grid_pool", route="cuda", source="orbslam3_tpu_torch/csrc/grid_pool.cu",
+             replaces="orbslam3_tpu/ops/select.py:36", launches=launches["grid_pool"],
+             **report["grid_pool"]),
+        dict(name="stereo_hamming", route="cuda",
+             source="orbslam3_tpu_torch/csrc/stereo_hamming.cu",
+             replaces="orbslam3_tpu/frontend/stereo_frame.py:86",
+             launches=launches["stereo_hamming"], **report["stereo_hamming"]),
+        dict(name="sad_refine", route="cuda", source="orbslam3_tpu_torch/csrc/sad_refine.cu",
+             replaces="orbslam3_tpu/frontend/stereo_frame.py:141",
+             launches=launches["sad_refine"], **report["sad_refine"]),
     ] + [
         dict(name=f"fast_variant_{fn}", route="cuda",
              source="orbslam3_tpu_torch/csrc/fast_variants.cu", replaces=replaces,

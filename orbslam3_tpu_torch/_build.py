@@ -42,6 +42,7 @@ build_info: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # fast_score(img, mask, out, h, w, stream)
     "fast_score": [_P, _P, _P, _I, _I, _P],
@@ -56,6 +57,16 @@ _SIGNATURES = {
     "sample_windows": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # brief_descriptors(img, h, w, xy, angles, cos, sin, pattern, k, factor, out, stream)
     "brief_descriptors": [_P, _I, _I, _P, _P, _P, _P, _P, _I, ctypes.c_float, _P, _P],
+    # grid_pool(maps, n_maps, key, resp, ys, xs, pool, stream); maps: n_maps x
+    # int64 (score, h, w, stride, cell, fine)
+    "grid_pool": [_P, _I, _P, _P, _P, _P, _I, _P],
+    # stereo_hamming(xy_l, oct_l, valid_l, desc_l, row_off_l, col_off_l, k_l,
+    #                the same of the right camera, k_r,
+    #                scale, inv_scale, level_hw, max_d, out, stream)
+    "stereo_hamming": [*[_P] * 6, _I, *[_P] * 6, _I, _P, _P, _P, _F, _P, _P],
+    # sad_refine(p_l, p_r, pairs, xy_l, oct_l, scale, k, max_d, mbf, th_factor,
+    #            scratch, u_right, depth, stream)
+    "sad_refine": [*[_P] * 6, _I, _F, _F, _F, _P, _P, _P, _P],
     # fast_variant_t1(img, out, h, w, cast_early, chain16, in_kind, stream)
     "fast_variant_t1": [_P, _P, _I, _I, _I, _I, _I, _P],
     # fast_variant_t2(img, out, h, w, strip, arc, chunk_rows, chunk_cols, stream)

@@ -3,17 +3,26 @@
 Counterpart of ``orbslam3_tpu/frontend/stereo_frame.py``.  One call runs
 the whole perception side of a stereo frame on the input's device: both
 pyramids, one FAST composite pass for both cameras (one B1 launch), one
-batched selection, orientation and rBRIEF over the camera-merged composite
-(one B2 launch gathers both stages' windows), then the masked Hamming
-match with the 11-slide SAD subpixel refinement (one B2 launch gathers the
-left and right strips) and the median-SAD filter: two B2 launches a frame.
+batched selection (K1's two launches, ``csrc/grid_pool.cu``), orientation
+and rBRIEF over the camera-merged composite (one B2 launch gathers both
+stages' windows), then the left-right match, `stereo_match`, in three
+steps with no torch op between them on the card: the masked Hamming match
+over the K x K pair grid with the SAD strips' starts (K2, one launch,
+``csrc/stereo_hamming.cu``; `stereo_pairs`), the left and right strips
+(one B2 launch) and the 11-slide SAD subpixel refinement with the
+median-SAD filter (K3, two launches, ``csrc/sad_refine.cu``;
+`sad_refine`).  A frame makes 1 B1, 2 B2, 2 K1, 1 K2 and 2 K3 launches.
+On the CPU each kernel's wrapper runs its plain twin instead
+(`ops/select.candidate_pools_plain`, `stereo_pairs_plain`,
+`sad_refine_plain`: the torch ops the kernels replaced, bit for bit the
+JAX package's).
 
 Under `FusedKernels` detection runs B3 instead of B1 and orientation and
 rBRIEF run B4 and B5's rBRIEF mode instead of their B2 windows; the SAD
 refinement keeps its B2 launch.  On a geometry that is not flat each
-camera takes the per-level `_extract_single` (one B2 launch each unless
-fused), and the matcher still reads the camera-merged composite, as in
-the reference.
+camera takes the per-level `_extract_single` (one B2 launch and one
+selection each unless fused), and the matcher still reads the
+camera-merged composite, as in the reference.
 
 As the reference runs the frame as one `jax.jit` dispatch, the port runs
 it on CUDA as one CUDA graph replay (`utils.frame_graph.FrameGraph`):
@@ -44,6 +53,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from orbslam3_tpu_torch import _build
+from orbslam3_tpu_torch._device import stream_handle
 from orbslam3_tpu_torch.oracle.orb_cpu import PyramidParams
 from orbslam3_tpu_torch.ops.extractor import (
     PACK_COLS,
@@ -77,20 +88,32 @@ class StereoFrameFeatures(NamedTuple):
     depth: torch.Tensor    # (K,) f32 — mbf/disparity, -1 if none
 
 
-def stereo_match(
+# rows of the (11, K) int32 block of the pair match (K2 and its twin):
+# the match, then what the SAD strips and the refinement read
+PAIR_ROWS = (
+    "best_r", "best_dist", "tentative", "sul", "svl", "sur0", "in_bounds",
+    "row_l", "col_l", "row_r", "col_r",
+)
+PAIR_ROW = {name: i for i, name in enumerate(PAIR_ROWS)}
+# the median filter's factor as the reference writes it (a Python double;
+# torch and XLA multiply the f32 median by its f32 rounding)
+MEDIAN_FACTOR = 1.5 * 1.4
+
+
+def stereo_pairs_plain(
     feat_l: FrameFeatures,
     feat_r: FrameFeatures,
-    stack_l: tuple,   # (composite, (L,) row origins, (L,) col origins) — int32 tensors
-    stack_r: tuple,
-    level_hw: torch.Tensor,       # (L, 2) int32 per-level (h, w)
-    scale_factors: torch.Tensor,  # (L,) f32
+    level_hw: torch.Tensor,           # (L, 2) int32 per-level (h, w)
+    scale_factors: torch.Tensor,      # (L,) f32
     inv_scale_factors: torch.Tensor,  # (L,) f32, 1/scale in f32
-    mbf: float,
-    mb: float,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """LR matcher; returns (u_right, depth) per left keypoint slot."""
+    origins_l: tuple,                 # ((L,) row, (L,) col) level-block origins, int32
+    origins_r: tuple,
+    max_d: float,
+) -> torch.Tensor:
+    """Plain twin of K2: the (11, K) int32 block of `PAIR_ROWS` — the
+    masked Hamming match over the K x K pair grid, then the SAD strips'
+    rounded coordinates, bounds and clipped starts."""
     th_orb = (TH_HIGH + TH_LOW) // 2
-    max_d = mbf / mb
     ul, vl = feat_l.xy[:, 0], feat_l.xy[:, 1]
     ur, vr = feat_r.xy[:, 0], feat_r.xy[:, 1]
     oct_l = feat_l.octave.to(torch.int64)
@@ -111,7 +134,7 @@ def stereo_match(
     best_r = torch.argmin(d, dim=1)  # first minimum on ties (C-h5)
     tentative = best_dist < th_orb
 
-    # --- SAD subpixel refinement at the left keypoint's level -------------
+    # --- the SAD strips at the left keypoint's level -----------------------
     inv = inv_scale_factors[oct_l]
     sul = torch.round(ul * inv).to(torch.int32)
     svl = torch.round(vl * inv).to(torch.int32)
@@ -123,8 +146,6 @@ def stereo_match(
         & (sul - SAD_W >= 0) & (sul + SAD_W + 1 <= lw)
         & (sur0 - SAD_L - SAD_W >= 0) & (sur0 + SAD_L + SAD_W + 1 <= lw)
     )
-    comp_l, row_off_l, col0_l = stack_l
-    comp_r, row_off_r, col0_r = stack_r
     wl, ww = 2 * SAD_W + 1, 2 * (SAD_L + SAD_W) + 1
 
     def clip(x, hi):  # per-level clips keep every window inside its block
@@ -133,10 +154,109 @@ def stereo_match(
     cl_svl = clip(svl - SAD_W, lh - wl)
     cl_sul = clip(sul - SAD_W, lw - wl)
     cl_sur = clip(sur0 - SAD_L - SAD_W, lw - ww)
-    p_l, p_r = gather_windows_many([
-        (comp_l, row_off_l[oct_l] + cl_svl, col0_l[oct_l] + cl_sul, wl, wl),
-        (comp_r, row_off_r[oct_l] + cl_svl, col0_r[oct_l] + cl_sur, wl, ww),
+    rows = (
+        best_r, best_dist, tentative, sul, svl, sur0, in_bounds,
+        origins_l[0][oct_l] + cl_svl, origins_l[1][oct_l] + cl_sul,
+        origins_r[0][oct_l] + cl_svl, origins_r[1][oct_l] + cl_sur,
+    )
+    return torch.stack([r.to(torch.int32) for r in rows])
+
+
+def _check_features(*feats: FrameFeatures) -> None:
+    dev = feats[0].xy.device
+    for f in feats:
+        k = f.xy.shape[0]
+        if (
+            f.xy.dtype != torch.float32 or tuple(f.xy.shape) != (k, 2)
+            or f.octave.dtype != torch.int32 or tuple(f.octave.shape) != (k,)
+            or f.valid.dtype != torch.bool or tuple(f.valid.shape) != (k,)
+            or f.desc.dtype != torch.uint8 or tuple(f.desc.shape) != (k, 32)
+        ):
+            raise TypeError("features must be FrameFeatures of (K, 2) f32 xy, int32 octaves, "
+                            "bool validity and (K, 32) uint8 descriptors")
+        if any(t.device != dev for t in (f.xy, f.octave, f.valid, f.desc)):
+            raise ValueError("the features' leaves must lie on one device")
+
+
+def stereo_pairs(
+    feat_l: FrameFeatures, feat_r: FrameFeatures, level_hw: torch.Tensor,
+    scale_factors: torch.Tensor, inv_scale_factors: torch.Tensor, origins_l: tuple,
+    origins_r: tuple, max_d: float,
+) -> torch.Tensor:
+    """The (11, K) int32 block of `PAIR_ROWS`, equal to
+    `stereo_pairs_plain`.  CUDA tensors: one launch of K2
+    (``csrc/stereo_hamming.cu``); CPU tensors: the plain twin."""
+    _check_features(feat_l, feat_r)
+    dev = feat_l.xy.device
+    tables = (level_hw, scale_factors, inv_scale_factors, *origins_l, *origins_r)
+    if any(t.device != dev for t in (feat_r.xy, *tables)):
+        raise ValueError("features and tables must lie on one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cpu":
+        return stereo_pairs_plain(feat_l, feat_r, level_hw, scale_factors, inv_scale_factors,
+                                  origins_l, origins_r, max_d)
+    if feat_r.xy.shape[0] > 0xFFFF:
+        raise ValueError("K2 takes at most 65535 right slots")
+    k_l = feat_l.xy.shape[0]
+    out = torch.empty((len(PAIR_ROWS), k_l), dtype=torch.int32, device=dev)
+    if k_l == 0:
+        return out
+    level_hw, scale_factors, inv_scale_factors = (
+        t.contiguous() for t in (level_hw, scale_factors, inv_scale_factors)
+    )
+    if level_hw.dtype != torch.int32 or scale_factors.dtype != torch.float32:
+        raise TypeError("level_hw must be int32 and the scale factors f32")
+    sides = []
+    for f, (row_off, col_off) in ((feat_l, origins_l), (feat_r, origins_r)):
+        side = [f.xy.contiguous(), f.octave.contiguous(), f.valid.contiguous(),
+                f.desc.contiguous(), row_off.to(torch.int32).contiguous(),
+                col_off.to(torch.int32).contiguous()]
+        sides.append(side)  # alive until the launch is queued
+    ptrs = [[t.data_ptr() for t in side] for side in sides]
+    err = _build.kernels().stereo_hamming(
+        *ptrs[0], k_l, *ptrs[1], feat_r.xy.shape[0], scale_factors.data_ptr(),
+        inv_scale_factors.data_ptr(), level_hw.data_ptr(), max_d, out.data_ptr(),
+        stream_handle(out),
+    )
+    stereo_pairs.launches += 1
+    _build.check_launch("stereo_hamming", err)
+    return out
+
+
+stereo_pairs.launches = 0
+
+
+def sad_strips(
+    comp_l: torch.Tensor, comp_r: torch.Tensor, pairs: torch.Tensor
+) -> list[torch.Tensor]:
+    """The (K, 11, 11) left windows of `comp_l` and (K, 11, 21) right
+    strips of `comp_r` at the pair block's clipped starts: one B2 launch
+    of two jobs on the card."""
+    wl, ww = 2 * SAD_W + 1, 2 * (SAD_L + SAD_W) + 1
+    return gather_windows_many([
+        (comp_l, pairs[PAIR_ROW["row_l"]], pairs[PAIR_ROW["col_l"]], wl, wl),
+        (comp_r, pairs[PAIR_ROW["row_r"]], pairs[PAIR_ROW["col_r"]], wl, ww),
     ])
+
+
+def sad_refine_plain(
+    p_l: torch.Tensor,   # (K, 11, 11) uint8 left windows
+    p_r: torch.Tensor,   # (K, 11, 21) uint8 right strips
+    pairs: torch.Tensor,  # (11, K) int32, `PAIR_ROWS`
+    xy_l: torch.Tensor,   # (K, 2) f32 left keypoints
+    oct_l: torch.Tensor,  # (K,) int32 left octave
+    scale_factors: torch.Tensor,
+    max_d: float,
+    mbf: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of K3: (u_right, depth) from the 11-slide SAD subpixel
+    refinement and the median-SAD outlier filter."""
+    wl = 2 * SAD_W + 1
+    ul = xy_l[:, 0]
+    tentative = pairs[PAIR_ROW["tentative"]] != 0
+    in_bounds = pairs[PAIR_ROW["in_bounds"]] != 0
+    sur0 = pairs[PAIR_ROW["sur0"]]
     p_l = p_l.to(torch.int32)
     p_r = p_r.to(torch.int32)
     # SAD of slide j: left window against right columns [j, j + 11); int32
@@ -156,7 +276,7 @@ def stereo_match(
     delta = torch.where(denom != 0, (d1 - d3) / denom, 0.0)
     delta_ok = (delta >= -1.0) & (delta <= 1.0)
 
-    best_ur = scale_factors[oct_l] * (
+    best_ur = scale_factors[oct_l.to(torch.int64)] * (
         sur0.to(torch.float32) + (best_j - SAD_L).to(torch.float32) + delta
     )
     disparity = ul - best_ur
@@ -172,13 +292,81 @@ def stereo_match(
     sorted_sad, _ = torch.sort(torch.where(ok, sad, float(BIG)))
     mid = torch.clamp(n_ok // 2, max=sad.shape[0] - 1).view(1)
     median = sorted_sad.index_select(0, mid)[0]
-    th = 1.5 * 1.4 * median
+    th = MEDIAN_FACTOR * median
     ok = ok & (n_ok > 0) & (sad < th)
 
     u_right = torch.where(ok, best_ur, -1.0)
     # a true f32 division: python `scalar / tensor` is reciprocal-times
     depth = torch.where(ok, torch.full_like(disparity, mbf) / disparity, -1.0)
     return u_right, depth
+
+
+def sad_refine(
+    p_l: torch.Tensor, p_r: torch.Tensor, pairs: torch.Tensor, xy_l: torch.Tensor,
+    oct_l: torch.Tensor, scale_factors: torch.Tensor, max_d: float, mbf: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(u_right, depth), each (K,) f32, equal to `sad_refine_plain`.  CUDA
+    tensors: the two launches of K3 (``csrc/sad_refine.cu``: per slot, then
+    the one-block median), counted as two; CPU tensors: the plain twin."""
+    k = p_l.shape[0]
+    wl, ww = 2 * SAD_W + 1, 2 * (SAD_L + SAD_W) + 1
+    if (
+        tuple(p_l.shape) != (k, wl, wl) or tuple(p_r.shape) != (k, wl, ww)
+        or p_l.dtype != torch.uint8 or p_r.dtype != torch.uint8
+        or tuple(pairs.shape) != (len(PAIR_ROWS), k) or pairs.dtype != torch.int32
+        or tuple(xy_l.shape) != (k, 2) or xy_l.dtype != torch.float32
+        or tuple(oct_l.shape) != (k,) or oct_l.dtype != torch.int32
+    ):
+        raise TypeError(f"sad_refine: expected (K, {wl}, {wl}) and (K, {wl}, {ww}) uint8 strips, "
+                        f"an ({len(PAIR_ROWS)}, K) int32 pair block, (K, 2) f32 keypoints and "
+                        "(K,) int32 octaves")
+    dev = p_l.device
+    if any(t.device != dev for t in (p_r, pairs, xy_l, oct_l, scale_factors)):
+        raise ValueError("sad_refine's inputs must lie on one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cpu":
+        return sad_refine_plain(p_l, p_r, pairs, xy_l, oct_l, scale_factors, max_d, mbf)
+    u_right = torch.empty(k, dtype=torch.float32, device=dev)
+    depth = torch.empty(k, dtype=torch.float32, device=dev)
+    if k == 0:
+        return u_right, depth
+    scratch = torch.empty((4, k), dtype=torch.int32, device=dev)
+    inputs = [p_l.contiguous(), p_r.contiguous(), pairs.contiguous(), xy_l.contiguous(),
+              oct_l.contiguous(), scale_factors.to(torch.float32).contiguous()]
+    err = _build.kernels().sad_refine(
+        *(t.data_ptr() for t in inputs), k, max_d, mbf, MEDIAN_FACTOR, scratch.data_ptr(),
+        u_right.data_ptr(), depth.data_ptr(), stream_handle(u_right),
+    )
+    sad_refine.launches += 2
+    _build.check_launch("sad_refine", err)
+    return u_right, depth
+
+
+sad_refine.launches = 0
+
+
+def stereo_match(
+    feat_l: FrameFeatures,
+    feat_r: FrameFeatures,
+    stack_l: tuple,   # (composite, (L,) row origins, (L,) col origins) — int32 tensors
+    stack_r: tuple,
+    level_hw: torch.Tensor,       # (L, 2) int32 per-level (h, w)
+    scale_factors: torch.Tensor,  # (L,) f32
+    inv_scale_factors: torch.Tensor,  # (L,) f32, 1/scale in f32
+    mbf: float,
+    mb: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """LR matcher; returns (u_right, depth) per left keypoint slot: the
+    pair match (K2), the left and right SAD strips (one B2 launch), then
+    the refinement and median filter (K3)."""
+    max_d = mbf / mb
+    comp_l, *origins_l = stack_l
+    comp_r, *origins_r = stack_r
+    pairs = stereo_pairs(feat_l, feat_r, level_hw, scale_factors, inv_scale_factors,
+                         tuple(origins_l), tuple(origins_r), max_d)
+    p_l, p_r = sad_strips(comp_l, comp_r, pairs)
+    return sad_refine(p_l, p_r, pairs, feat_l.xy, feat_l.octave, scale_factors, max_d, mbf)
 
 
 def _pack_features(out: StereoFrameFeatures) -> torch.Tensor:

@@ -6,7 +6,10 @@ Counterpart of ``orbslam3_tpu/ops/matching.py``'s `hamming_matrix`,
 reference unpacks bits and rides the TPU's matrix unit; here the distance
 is the popcount of the XOR, computed SWAR-style on 16-bit words.  All of
 it ran outside any Pallas kernel in the reference, so plain tensor code is
-its port; integers are exact and ties go to the first minimum.
+its port; integers are exact and ties go to the first minimum.  The stereo
+front-end's left-right match computes its distances on the card in K2
+(``frontend/stereo_frame.stereo_pairs``, ``csrc/stereo_hamming.cu``):
+`hamming_matrix` serves that kernel's twin and the dense matcher here.
 """
 
 from __future__ import annotations

@@ -1,18 +1,32 @@
 """Spatially-uniform top-K keypoint selection.
 
 Counterpart of ``orbslam3_tpu/ops/select.py`` (cell winners first, then the
-best residuals of a 2x finer grid).  The reference's `lax.top_k` takes the
-lower index first among equal keys, and keys tie often (integer responses
-plus a 1e6 winner offset); `torch.topk` promises no order among ties, so
-the port sorts with `stable=True`, which keeps the lower index first (C-h1).
-The reference's byte-split one-hot payload pickup is a plain gather here.
+best residuals of a 2x finer grid).  The candidate pools of every map of
+one `select_topk_grid_multi` call come from the hand-written CUDA kernel
+``csrc/grid_pool.cu`` (K1: two launches, coarse cells then fine cells and
+pads, on a CUDA tensor; `candidate_pools`) or, on a CPU tensor, from its
+plain twin `candidate_pools_plain`, the per-map torch ops of
+`_candidate_pool`.  The reference's `lax.top_k` takes the lower index
+first among equal keys, and keys tie often (integer responses plus a 1e6
+winner offset); `torch.topk` promises no order among ties, so the port
+sorts with `stable=True`, which keeps the lower index first (C-h1): the
+sort and the gathers after it stay torch ops, as the reference's top_k
+runs outside any Pallas kernel.  The reference's byte-split one-hot
+payload pickup is a plain gather here.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
+
+from orbslam3_tpu_torch import _build
+from orbslam3_tpu_torch._device import stream_handle
+
+# maps one pair of K1 launches takes (kMaxMaps of csrc/grid_pool.cu)
+MAX_MAPS = 32
 
 
 def cell_size_for(h: int, w: int, k: int) -> int:
@@ -82,6 +96,69 @@ def _candidate_pool(score: torch.Tensor, k: int):
     return key, resp, ys, xs
 
 
+def _grid_of(h: int, w: int, k: int) -> tuple[int, int, int]:
+    """(cell, fine, coarse + fine cells) of one map's pool."""
+    cell = cell_size_for(h, w, k)
+    gy, gx = math.ceil(h / cell), math.ceil(w / cell)
+    fine = max(cell // 2, 1)
+    return cell, fine, gy * gx + math.ceil(gy * cell / fine) * math.ceil(gx * cell / fine)
+
+
+def candidate_pools_plain(scores: list, ks: list):
+    """Plain twin of K1: (key, resp, ys, xs), each (L, P), row l the pool of
+    `_candidate_pool(scores[l], ks[l])` padded to the longest pool P (key
+    -1, the others 0)."""
+    pools = [_candidate_pool(s, k) for s, k in zip(scores, ks)]
+    pmax = max(p[0].shape[0] for p in pools)
+
+    def stack(i, fill):
+        return torch.stack(
+            [torch.nn.functional.pad(p[i], (0, pmax - p[i].shape[0]), value=fill) for p in pools]
+        )
+
+    return stack(0, -1.0), stack(1, 0), stack(2, 0), stack(3, 0)
+
+
+def candidate_pools(scores: list, ks: list):
+    """(key, resp, ys, xs), each (L, P), equal to `candidate_pools_plain`.
+    CUDA tensors: the two launches of K1 for every MAX_MAPS maps (one pair
+    for any selection of the port's paths), each launch counted; CPU
+    tensors: the plain twin."""
+    if not scores or len(scores) != len(ks):
+        raise ValueError("one quota per score map, at least one map")
+    dev = scores[0].device
+    if any(s.dim() != 2 or s.device != dev or 0 in s.shape for s in scores):
+        raise ValueError("score maps must be non-empty 2-D tensors on one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cpu":
+        return candidate_pools_plain(scores, ks)
+    grids = [_grid_of(*s.shape, k) for s, k in zip(scores, ks)]
+    pool = max(n + k for (_, _, n), k in zip(grids, ks))
+    params, maps = [], []
+    for s, (cell, fine, _) in zip(scores, grids):
+        s = s.to(torch.int32)
+        if s.stride(1) != 1:
+            s = s.contiguous()
+        maps.append(s)  # alive until the launches are queued
+        params.append([s.data_ptr(), s.shape[0], s.shape[1], s.stride(0), cell, fine])
+    n = len(scores)
+    key = torch.empty((n, pool), dtype=torch.float32, device=dev)
+    resp, ys, xs = (torch.empty((n, pool), dtype=torch.int32, device=dev) for _ in range(3))
+    for l0 in range(0, n, MAX_MAPS):
+        chunk = [v for p in params[l0 : l0 + MAX_MAPS] for v in p]
+        err = _build.kernels().grid_pool(
+            (ctypes.c_longlong * len(chunk))(*chunk), len(chunk) // 6,
+            *(t[l0].data_ptr() for t in (key, resp, ys, xs)), pool, stream_handle(maps[0]),
+        )
+        candidate_pools.launches += 2
+        _build.check_launch("grid_pool", err)
+    return key, resp, ys, xs
+
+
+candidate_pools.launches = 0
+
+
 def select_topk_grid_multi(scores: list, ks: list) -> list:
     """Grid top-K for SEVERAL maps with ONE batched stable sort.
 
@@ -92,17 +169,8 @@ def select_topk_grid_multi(scores: list, ks: list) -> list:
         raise ValueError("one quota per score map")
     if not scores:
         return []
-    pools = [_candidate_pool(s, k) for s, k in zip(scores, ks)]
-    pmax = max(p[0].shape[0] for p in pools)
+    key, resp, ys, xs = candidate_pools(scores, ks)  # (L, P)
     kmax = max(ks)
-
-    def stack(i, fill):
-        return torch.stack(
-            [torch.nn.functional.pad(p[i], (0, pmax - p[i].shape[0]), value=fill) for p in pools]
-        )
-
-    key = stack(0, -1.0)  # (L, P)
-    resp, ys, xs = stack(1, 0), stack(2, 0), stack(3, 0)
     top_key, sel = torch.sort(key, dim=1, descending=True, stable=True)
     top_key, sel = top_key[:, :kmax], sel[:, :kmax]
     r = resp.gather(1, sel)

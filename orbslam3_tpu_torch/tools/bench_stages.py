@@ -3,7 +3,11 @@
 The port's counterpart of the reference's `tools/bench_stages.py`: the
 same stages (pyramid, blur, fast, fastraw / fastnms, select, orient,
 brief, mono, stereo, s:detect / s:feats), each the port's eager function
-on the same 752x480 images and `PyramidParams(n_features=1000)`.  The
+on the same 752x480 images and `PyramidParams(n_features=1000)`, and the
+port's own: pool (the selection's candidate pools alone, K1 on the card)
+and, under stereoparts, s:pairs and s:sad (the stereo match's pair match,
+K2, and its SAD refinement with the median filter, K3, alone, on the
+pair's own features and strips).  The
 reference's slope method (two scans of N calls in one program) becomes
 CUDA events around the replay of one CUDA graph of N calls of the stage
 (`utils.device_time.device_ms`, as `chip_smoke.py` times its kernels): the
@@ -14,7 +18,7 @@ call.
 Usage: python -m orbslam3_tpu_torch.tools.bench_stages [stage ...]
            [--calls=N] [--device=cpu]
 (no stage: all; "fastraw" prints fastraw and fastnms, "stereoparts"
-s:detect and s:feats)
+s:detect, s:feats, s:pairs and s:sad)
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ import time
 import numpy as np
 import torch
 
-STAGES = ("pyramid", "blur", "fast", "fastraw", "select", "orient", "brief", "mono", "stereo",
-          "stereoparts")
+STAGES = ("pyramid", "blur", "fast", "fastraw", "select", "pool", "orient", "brief", "mono",
+          "stereo", "stereoparts")
 H, W = 480, 752
 
 
@@ -52,13 +56,15 @@ def run(only=(), device: str = "cuda", calls: int = 20, h: int = H, w: int = W) 
     each printed as it is measured."""
     from orbslam3_tpu_torch.frontend.stereo_frame import DEFAULT_FX, DEFAULT_MBF, StereoFrontEnd
     from orbslam3_tpu_torch.ops.brief import brief_descriptors, brief_sampling_image
-    from orbslam3_tpu_torch.ops.extractor import FeatureExtractor, detection_crops
+    from orbslam3_tpu_torch.ops.extractor import (
+        FeatureExtractor, build_merged_composites, detection_crops,
+    )
     from orbslam3_tpu_torch.ops.fast import (
         detect_two_threshold_multi, detection_composite, nms3, raw_score_map,
     )
     from orbslam3_tpu_torch.ops.orientation import ic_angles
     from orbslam3_tpu_torch.ops.pyramid import build_pyramid, gaussian_blur7_u8
-    from orbslam3_tpu_torch.ops.select import select_topk_grid_multi
+    from orbslam3_tpu_torch.ops.select import candidate_pools, select_topk_grid_multi
     from orbslam3_tpu_torch.oracle.orb_cpu import FAST_BORDER, PyramidParams
 
     dev = torch.device(device)
@@ -103,6 +109,8 @@ def run(only=(), device: str = "cuda", calls: int = 20, h: int = H, w: int = W) 
     quotas = [quotas[l] for l in active]
     if want("select"):
         report("select", lambda: select_topk_grid_multi(scores, quotas))
+    if want("pool"):
+        report("pool", lambda: candidate_pools(scores, quotas))
     sels = select_topk_grid_multi(scores, quotas)
     levels = [pyr[l] for l in active]
     xys = [torch.where(v[:, None], xy + b, b + 3) for (xy, _, v) in sels]
@@ -120,6 +128,18 @@ def run(only=(), device: str = "cuda", calls: int = 20, h: int = H, w: int = W) 
     if want("stereo"):
         report("stereo", lambda: fe.eager(pair))
     if want("stereoparts"):
+        from orbslam3_tpu_torch.frontend.stereo_frame import sad_refine, sad_strips, stereo_pairs
+
+        feat_l, feat_r = fe.extract(pair)
+        max_d = DEFAULT_MBF / (DEFAULT_MBF / DEFAULT_FX)
+        pair_args = (feat_l, feat_r, fe.level_hw, fe.scale_factors, fe.inv_scale_factors,
+                     (fe.row_off[0], fe.col_off[0]), (fe.row_off[1], fe.col_off[1]), max_d)
+        pairs = stereo_pairs(*pair_args)
+        comp = build_merged_composites(
+            [build_pyramid(pair[i], params, taps) for i in range(2)], fe).bordered
+        sad_args = (*sad_strips(comp, comp, pairs), pairs, feat_l.xy, feat_l.octave,
+                    fe.scale_factors, max_d, DEFAULT_MBF)
+
         def detect():
             pyr_l = build_pyramid(pair[0], params, taps)
             pyr_r = build_pyramid(pair[1], params, taps)
@@ -130,6 +150,8 @@ def run(only=(), device: str = "cuda", calls: int = 20, h: int = H, w: int = W) 
 
         report("s:detect", detect)
         report("s:feats", lambda: fe.extract(pair))
+        report("s:pairs", lambda: stereo_pairs(*pair_args))
+        report("s:sad", lambda: sad_refine(*sad_args))
     return out
 
 

@@ -40,6 +40,9 @@ CSRC = (
     ("window_moments_kernel", "csrc/window_moments.cu"),
     ("sample_windows_kernel", "csrc/sample_windows.cu"), ("brief_kernel", "csrc/sample_windows.cu"),
     ("fast_variant_kernel", "csrc/fast_variants.cu"),
+    ("grid_pool_coarse_kernel", "csrc/grid_pool.cu"), ("grid_pool_fine_kernel", "csrc/grid_pool.cu"),
+    ("stereo_hamming_kernel", "csrc/stereo_hamming.cu"), ("sad_slots_kernel", "csrc/sad_refine.cu"),
+    ("sad_median_kernel", "csrc/sad_refine.cu"),
 )
 CATS = (
     ("kernels (csrc)", tuple(k for k, _ in CSRC)),

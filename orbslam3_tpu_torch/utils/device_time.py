@@ -25,6 +25,10 @@ INT32_OPS_PER_S = 2 * 132 * 64 * 1.98e9
 # 16-bit lanes packed two to a register (__vsub2, __vmins2 / __vmaxs2,
 # __vminu2 / __vmaxu2): two operations per lane op
 INT16X2_OPS_PER_S = 2 * INT32_OPS_PER_S
+# 32-bit population counts (__popc): 16 a clock on each SM (the CUDA
+# programming guide's throughput table for compute capability 9.0), so
+# 132 x 16 x 1.98 GHz
+POPC_OPS_PER_S = 132 * 16 * 1.98e9
 # float32 outside the tensor cores, each product, sum and conversion issued
 # on its own (no FMA): 132 SMs x 128 FP32 lanes x 1.98 GHz, half the data
 # sheet's 67 TFLOP/s, which counts an FMA as two operations

@@ -15,9 +15,11 @@ import contextlib
 
 def _wrappers() -> dict:
     """The counted wrapper of each hand-written kernel, by kernel name."""
+    from orbslam3_tpu_torch.frontend.stereo_frame import sad_refine, stereo_pairs
     from orbslam3_tpu_torch.ops import fast_variants as fv
     from orbslam3_tpu_torch.ops.brief import brief_descriptors
     from orbslam3_tpu_torch.ops.fast import detect_fused, raw_score_map
+    from orbslam3_tpu_torch.ops.select import candidate_pools
     from orbslam3_tpu_torch.ops.window_gather import gather_windows, sample_windows, window_moments
 
     return {
@@ -26,6 +28,7 @@ def _wrappers() -> dict:
         "sample_windows": sample_windows, "brief_descriptors": brief_descriptors,
         "fast_variant_t1": fv.fast_variant_t1, "fast_variant_t2": fv.fast_variant_t2,
         "fast_variant_t3": fv.fast_variant_t3, "fast_variant_t4": fv.fast_variant_t4,
+        "grid_pool": candidate_pools, "stereo_hamming": stereo_pairs, "sad_refine": sad_refine,
     }
 
 

@@ -33,7 +33,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 import orbslam3_tpu_torch as port
 from orbslam3_tpu_torch import FusedKernels, Pinhole, PyramidParams, stereo_sequence
 from orbslam3_tpu_torch.frontend import stereo_frame as sf
-from orbslam3_tpu_torch.ops import brief, extractor as ex, fast, orientation
+from orbslam3_tpu_torch.ops import brief, extractor as ex, fast, orientation, select
 from orbslam3_tpu_torch.ops import window_gather as wg
 from orbslam3_tpu_torch.utils import launches
 from orbslam3_tpu_torch.utils.frame_graph import FrameGraph, TableModule
@@ -59,7 +59,7 @@ def test_registry_snapshot_add_and_reset():
     assert set(before) == {
         "fast_score", "gather_windows", "detect_fused", "window_moments", "sample_windows",
         "brief_descriptors", "fast_variant_t1", "fast_variant_t2", "fast_variant_t3",
-        "fast_variant_t4",
+        "fast_variant_t4", "grid_pool", "stereo_hamming", "sad_refine",
     }
     assert port.kernel_launches() == before
     launches.add({"fast_score": 1, "gather_windows": 2})
@@ -231,6 +231,9 @@ def meta_wrappers(monkeypatch):
     monkeypatch.setattr(sf, "gather_windows_many", many)
     monkeypatch.setattr(orientation, "window_moments", moments)
     monkeypatch.setattr(ex, "brief_descriptors", descriptors)
+    monkeypatch.setattr(select, "candidate_pools", select.candidate_pools_plain)
+    monkeypatch.setattr(sf, "stereo_pairs", sf.stereo_pairs_plain)
+    monkeypatch.setattr(sf, "sad_refine", sf.sad_refine_plain)
 
 
 @pytest.mark.parametrize("fused", [FusedKernels(), FUSED], ids=["default", "fused"])

@@ -46,7 +46,8 @@ def test_trace_ops_attributes_one_frame_to_the_ports_source(capsys):
     assert "top 5 ops:" in text and "per source" in text
     assert sum(out["per_op"].values()) > 0
     sources = set(out["per_source"])
-    assert {"ops/fast.py:nms3", "frontend/stereo_frame.py:stereo_match"} <= sources, sources
+    # the stereo match's ops sit in its pair match's twin on the CPU
+    assert {"ops/fast.py:nms3", "frontend/stereo_frame.py:stereo_pairs_plain"} <= sources, sources
     assert "graphed" not in out
 
 
