@@ -35,7 +35,7 @@ from orbslam3_tpu_torch.slam.frame import Frame
 from orbslam3_tpu_torch.slam.local_mapping import LocalMapping
 from orbslam3_tpu_torch.slam.map import Atlas
 from orbslam3_tpu_torch.slam.tracking import Tracking, TrackingState
-from orbslam3_tpu_torch.utils.benchmark import Benchmark, trace_range
+from orbslam3_tpu_torch.utils.benchmark import Benchmark, clock_ns, trace_range
 from orbslam3_tpu_torch.utils.lie import SE3
 
 # Benchmark tags of the front-end's stream window per frame, one per entry
@@ -48,6 +48,8 @@ MONO_STREAM_TAG = "1.1_GrabImageMonocular.extract.stream"
 RGBD_STREAM_TAG = "1.1_GrabImageRGBD.extract.stream"
 # the batched prefetch's stream window divided by its B frames
 BATCH_STREAM_TAG = "1.1_GrabImageStereo.extract_batch.stream"
+# the fisheye stereo front-end's extra Frame fields (None on the pinhole path)
+FISHEYE_FIELDS = ("n_left", "camera2", "Tlr", "left_to_right", "right_to_left", "stereo_p3d")
 
 
 class _SharedBatchFetch:
@@ -63,15 +65,18 @@ class _SharedBatchFetch:
         self.out = out
         self.done = done
         self.keep = keep
-        self.window = window  # (start event, B) of the batch's stream window
+        # (start event, B, host time the event was queued) of the batch's
+        # stream window
+        self.window = window
         self._host = None
 
     def host(self) -> np.ndarray:
         if self._host is None:
             if self.done is not None:
                 self.done.synchronize()
-                start, n = self.window
-                Benchmark.the().push_sample(BATCH_STREAM_TAG, start.elapsed_time(self.done) / n)
+                start, n, queued = self.window
+                Benchmark.the().push_sample(BATCH_STREAM_TAG, start.elapsed_time(self.done) / n,
+                                            start_ns=queued)
             self._host = self.out.numpy()
             self.out = self.done = self.keep = self.window = None
         return self._host
@@ -258,12 +263,13 @@ class System:
             return unpack(run().numpy())
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        queued = clock_ns()
         start.record()
         packed = run()
         end.record()
         host = packed.cpu().numpy()  # waits for the front-end
         end.synchronize()
-        Benchmark.the().push_sample(tag, start.elapsed_time(end))
+        Benchmark.the().push_sample(tag, start.elapsed_time(end), start_ns=queued)
         return unpack(host)
 
     def _extract_stereo(self, img_l: np.ndarray, img_r: np.ndarray):
@@ -331,44 +337,51 @@ class System:
         """imu: optional (acc (N,3), gyro (N,3), dts (N,)) samples covering
         the interval since the previous frame (System::TrackStereo's vImuMeas
         role); preintegrated and attached for IMU prediction/dead-reckoning."""
-        with trace_range("1.0_GrabImageStereo.preprocess", self.device):
-            img_l, img_r = self._preprocess_stereo(img_l, img_r)
-        with trace_range("1.1_GrabImageStereo.extract", self.device):
-            if self.lapping1 is not None:
-                feats = self._extract_stereo_fisheye(img_l, img_r)
-            else:
-                feats = self._extract_stereo(img_l, img_r)
-        frame = Frame(
-            kps=feats["kps"],
-            octave=feats["octave"],
-            angle=feats["angle"],
-            response=feats["response"],
-            desc=feats["desc"],
-            camera=self.camera,
-            scale_factors=self.scale_factors,
-            timestamp=timestamp,
-            u_right=feats["u_right"],
-            depth=feats["depth"],
-            mbf=self.mbf,
-            n_left=feats.get("n_left"),
-            camera2=feats.get("camera2"),
-            Tlr=feats.get("Tlr"),
-            left_to_right=feats.get("left_to_right"),
-            right_to_left=feats.get("right_to_left"),
-            stereo_p3d=feats.get("stereo_p3d"),
-        )
-        frame.set_image_bounds(0, 0, img_l.shape[1], img_l.shape[0])
-        if self.vocabulary is not None:
-            frame.bow_vec, frame.feat_vec = self.vocabulary.transform(frame.desc)
-        else:
-            frame.feat_vec = None
-        if imu is not None:
-            frame.imu_preint = self._preintegrate(imu)
-        with trace_range("2_Track", self.device):
+        with trace_range("System.track_stereo", self.device, frame=Frame._next_id):
+            with trace_range("1.0_GrabImageStereo.preprocess", self.device):
+                img_l, img_r = self._preprocess_stereo(img_l, img_r)
+            with trace_range("1.1_GrabImageStereo.extract", self.device):
+                if self.lapping1 is not None:
+                    feats = self._extract_stereo_fisheye(img_l, img_r)
+                else:
+                    feats = self._extract_stereo(img_l, img_r)
+            frame = self._frame(
+                feats, timestamp, (0, 0, img_l.shape[1], img_l.shape[0]), imu,
+                u_right=feats["u_right"], depth=feats["depth"], mbf=self.mbf,
+                **{k: feats.get(k) for k in FISHEYE_FIELDS},
+            )
             pose = self.tracker.track_frame(frame)
-        if self.viewer is not None:
-            self.viewer.update(np.asarray(img_l.cpu()) if isinstance(img_l, torch.Tensor) else img_l)
+            if self.viewer is not None:
+                self.viewer.update(
+                    np.asarray(img_l.cpu()) if isinstance(img_l, torch.Tensor) else img_l)
         return pose
+
+    def _frame(self, feats: dict, timestamp: float, bounds, imu, **fields) -> Frame:
+        """Every entry point's frame assembly: the tracker's Frame of the
+        compacted features (`fields`: what the sensor adds, as Frame takes
+        it), its image bounds (x0, y0, x1, y1), its bag-of-words vectors and
+        its IMU preintegration."""
+        with trace_range("1.2_Frame", self.device, frame=Frame._next_id):
+            frame = Frame(
+                kps=feats["kps"],
+                octave=feats["octave"],
+                angle=feats["angle"],
+                response=feats["response"],
+                desc=feats["desc"],
+                camera=self.camera,
+                scale_factors=self.scale_factors,
+                timestamp=timestamp,
+                **fields,
+            )
+            frame.set_image_bounds(*bounds)
+            if self.vocabulary is not None:
+                with trace_range("1.2.1_BoW", self.device):
+                    frame.bow_vec, frame.feat_vec = self.vocabulary.transform(frame.desc)
+            else:
+                frame.feat_vec = None
+            if imu is not None:
+                frame.imu_preint = self._preintegrate(imu)
+        return frame
 
     # --- frame pipelining (the reference's intended async design,
     # src/ORBExtractorCUDA.cc:691-744: extraction of frame N+1 runs on the
@@ -430,10 +443,11 @@ class System:
         else:
             with self._on_side_stream():
                 start = torch.cuda.Event(enable_timing=True)
+                queued = clock_ns()
                 start.record()
                 packed = fe.batch(torch.stack([self._pair(*p) for p in pre]))
                 host, done = self._to_pinned(packed)
-            fetch = _SharedBatchFetch(host, done, packed, (start, len(pre)))
+            fetch = _SharedBatchFetch(host, done, packed, (start, len(pre), queued))
         return [(_BatchRow(fetch, i), None, None, p[0].shape) for i, p in enumerate(pre)]
 
     def track_stereo_prefetched(
@@ -498,28 +512,9 @@ class System:
             valid_z, kps_un[:, 0] - self.mbf / np.maximum(z, 1e-9), -1.0
         )
         depth = np.where(valid_z, z, -1.0)
-        frame = Frame(
-            kps=kps,
-            octave=feats["octave"],
-            angle=feats["angle"],
-            response=feats["response"],
-            desc=feats["desc"],
-            camera=self.camera,
-            scale_factors=self.scale_factors,
-            timestamp=timestamp,
-            u_right=u_right,
-            depth=depth,
-            mbf=self.mbf,
-        )
-        frame.set_image_bounds(0, 0, img.shape[1], img.shape[0])
-        if self.vocabulary is not None:
-            frame.bow_vec, frame.feat_vec = self.vocabulary.transform(frame.desc)
-        else:
-            frame.feat_vec = None
-        if imu is not None:
-            frame.imu_preint = self._preintegrate(imu)
-        with trace_range("2_Track", self.device):
-            pose = self.tracker.track_frame(frame)
+        frame = self._frame(feats, timestamp, (0, 0, img.shape[1], img.shape[0]), imu,
+                            u_right=u_right, depth=depth, mbf=self.mbf)
+        pose = self.tracker.track_frame(frame)
         if self.viewer is not None:
             self.viewer.update(img)
         return pose
@@ -556,24 +551,7 @@ class System:
                 if self._mono_frames_since_init < self.tracker.max_frames:
                     params = self.ini_orb_params
         feats = self._extract_mono(img, params, MONO_STREAM_TAG)
-        frame = Frame(
-            kps=feats["kps"],
-            octave=feats["octave"],
-            angle=feats["angle"],
-            response=feats["response"],
-            desc=feats["desc"],
-            camera=self.camera,
-            scale_factors=self.scale_factors,
-            timestamp=timestamp,
-            mbf=0.0,
-        )
-        frame.set_image_bounds(0, 0, img.shape[1], img.shape[0])
-        if self.vocabulary is not None:
-            frame.bow_vec, frame.feat_vec = self.vocabulary.transform(frame.desc)
-        else:
-            frame.feat_vec = None
-        if imu is not None:
-            frame.imu_preint = self._preintegrate(imu)
+        frame = self._frame(feats, timestamp, (0, 0, img.shape[1], img.shape[0]), imu, mbf=0.0)
         pose = self.tracker.track_frame(frame)
         if self.viewer is not None:
             self.viewer.update(img)
@@ -582,26 +560,8 @@ class System:
     def track_stereo_features(self, feats: dict, timestamp: float, bounds,
                               imu: tuple | None = None):
         """Entry point when features come precomputed (batch device runs)."""
-        frame = Frame(
-            kps=feats["kps"],
-            octave=feats["octave"],
-            angle=feats["angle"],
-            response=feats["response"],
-            desc=feats["desc"],
-            camera=self.camera,
-            scale_factors=self.scale_factors,
-            timestamp=timestamp,
-            u_right=feats["u_right"],
-            depth=feats["depth"],
-            mbf=self.mbf,
-        )
-        frame.set_image_bounds(*bounds)
-        if self.vocabulary is not None:
-            frame.bow_vec, frame.feat_vec = self.vocabulary.transform(frame.desc)
-        else:
-            frame.feat_vec = None
-        if imu is not None:
-            frame.imu_preint = self._preintegrate(imu)
+        frame = self._frame(feats, timestamp, bounds, imu, u_right=feats["u_right"],
+                            depth=feats["depth"], mbf=self.mbf)
         return self.tracker.track_frame(frame)
 
     # ------------------------------------------------------------------
@@ -870,18 +830,12 @@ class System:
     def insert_rect_time(self, ms: float):
         """System::InsertRectTime role (REGISTER_TIMES analog): record an
         externally-measured stereo-rectification duration."""
-        from orbslam3_tpu_torch.utils.benchmark import Benchmark
-
         Benchmark.the().push_sample("0.0_Stereo_Rectification", ms)
 
     def insert_resize_time(self, ms: float):
-        from orbslam3_tpu_torch.utils.benchmark import Benchmark
-
         Benchmark.the().push_sample("0.1_Image_Resize", ms)
 
     def insert_track_time(self, ms: float):
-        from orbslam3_tpu_torch.utils.benchmark import Benchmark
-
         Benchmark.the().push_sample("1.0_Track", ms)
 
     def get_tracking_state(self):

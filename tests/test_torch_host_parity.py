@@ -15,8 +15,8 @@ their comments cite, and eight besides only in named seams: the
 definitions that replace cv2 (`frontend/rectify.py`, `optim/two_view.py`,
 `utils/synth.py`, `utils/viewer.py`), and the back-end's repairs
 (`slam/map_point.py`, `slam/local_mapping.py`, `slam/loop_closing.py`,
-`slam/tracking.py`, whose seams also hold the dense matcher's device); a
-test holds each to that.
+`slam/tracking.py`, whose seams also hold the dense matcher's device);
+a test holds each to that, reading the timing spans of these four away.
 """
 
 import ast
@@ -87,16 +87,26 @@ SEAMS = {
     # merge, the mapper's queue emptied first, stale loop matches
     # resolved, a frame tracking under the current map's lock; the
     # sequential loop closer holds a frame's keyframes until the tracker
-    # has logged the frame (run_held)
+    # has logged the frame (run_held); the keyframe queue's wait
+    # (_dequeued) and the keyframes refused while the mapper was busy
     "slam/loop_closing.py": (
         "imports", "LoopClosing.__init__", "LoopClosing.insert_keyframe", "LoopClosing.run_held",
         "LoopClosing._handle", "LoopClosing.correct_loop",
     ),
-    "slam/local_mapping.py": ("LocalMapping.spin",),
+    "slam/local_mapping.py": ("LocalMapping.spin", "LocalMapping._dequeued"),
     "slam/tracking.py": (
-        "Tracking.__init__", "Tracking._search_local_points", "Tracking.track_frame",
+        "Tracking.__init__", "Tracking.n_kf_refused_busy", "Tracking._search_local_points",
+        "Tracking.track_frame",
     ),
 }
+# the timing a copy with seams carries beside the reference's logic, read
+# away before the comparison: a `with` of these spans is read as its body,
+# and these simple statements as absent (the import of the spans, the
+# stamps of an after-the-fact span, the keyframe-queue table, the
+# keyframe-handoff counters)
+SPAN_WITHS = {"trace_range", "off_cpu"}
+SPAN_NAMES = {"clock_ns", "push_sample", "_queued_ns", "n_kf_wanted", "n_kf_inserted"}
+SPAN_MODULE = "orbslam3_tpu_torch.utils.benchmark"
 FX = 350.0
 H, W = 384, 512
 MBF = FX * 0.12
@@ -207,19 +217,58 @@ def test_copy_differs_from_reference_only_in_names(path):
         assert got == want
         return
     seams = [_seam_lines(text, SEAMS[path]) for text in (want, got)]
-    want_lines, got_lines = want.splitlines(), got.splitlines()
+    (want_lines, want_at), (got_lines, got_at) = _without_spans(want), _without_spans(got)
     ops = difflib.SequenceMatcher(None, want_lines, got_lines, autojunk=False).get_opcodes()
     outside = [
-        (side, i + 1, lines[i])
+        (side, at[i], lines[i])
         for tag, i1, i2, j1, j2 in ops if tag != "equal"
-        for side, lines, rng, inside in (
-            ("reference", want_lines, range(i1, i2), seams[0]),
-            ("port", got_lines, range(j1, j2), seams[1]),
+        for side, lines, at, rng, inside in (
+            ("reference", want_lines, want_at, range(i1, i2), seams[0]),
+            ("port", got_lines, got_at, range(j1, j2), seams[1]),
         )
-        for i in rng if lines[i].strip() and i + 1 not in inside
+        for i in rng if lines[i].strip() and at[i] not in inside
     ]
     assert not outside, outside
     assert all(seams), "a named seam is missing"
+
+
+def _without_spans(text: str) -> tuple:
+    """The lines of `text` with its timing read away, and the 1-based
+    number each had in `text`: the lines of each `with` whose items are
+    all SPAN_WITHS calls dropped and its body dedented to the `with`'s own
+    column, and each simple statement that names one of SPAN_NAMES, or
+    imports from SPAN_MODULE, dropped."""
+    lines = text.splitlines()
+    drop, dedent = set(), [0] * len(lines)
+
+    def names(node):
+        for n in ast.walk(node):
+            if isinstance(n, ast.Name):
+                yield n.id
+            elif isinstance(n, ast.Attribute):
+                yield n.attr
+
+    for node in ast.walk(ast.parse(text)):
+        if isinstance(node, ast.With) and all(
+            isinstance(item.context_expr, ast.Call)
+            and isinstance(item.context_expr.func, ast.Name)
+            and item.context_expr.func.id in SPAN_WITHS
+            for item in node.items
+        ):
+            header_end = max(item.context_expr.end_lineno for item in node.items)
+            drop.update(range(node.lineno - 1, header_end))
+            for i in range(header_end, node.end_lineno):
+                dedent[i] += node.body[0].col_offset - node.col_offset
+        elif isinstance(node, ast.stmt) and not hasattr(node, "body") and (
+            (isinstance(node, ast.ImportFrom) and node.module == SPAN_MODULE)
+            or SPAN_NAMES.intersection(names(node))
+        ):
+            drop.update(range(node.lineno - 1, node.end_lineno))
+    kept = [i for i in range(len(lines)) if i not in drop]
+    return (
+        [lines[i][min(dedent[i], len(lines[i]) - len(lines[i].lstrip(" "))):] for i in kept],
+        [i + 1 for i in kept],
+    )
 
 
 def _seam_lines(text: str, names) -> set:
