@@ -30,12 +30,21 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      multiple of a block, K = 2000, every slot invalid, rows with no valid
      pair, distance and slide ties, n_ok = 0 and one ok slot, odd cells,
      views, 32 and 40 maps), each timed (device time, bound, share, twin);
+     V1 (the vocabulary tree's walk) bit for bit against its twin on the
+     trees and batches of orbslam3_tpu_torch/tools/bench_vocab_kernel.py
+     (a trained tree with empty slots between children, synthesized
+     depth-4 and depth-6 trees, tied siblings, walks that end above the
+     feature level; 0 to 6000 descriptors), timed at a frame's 1200
+     descriptors beside the host's numpy transform;
   4. the stereo tracking path through its entry points: System.track_stereo
      over a 30-frame synthetic sequence, save_trajectory_tum, shutdown —
      every frame tracked, ATE RMSE under 1 cm, one B1, two B2, two K1, one
      K2 and two K3 launches per frame, and no JAX in the process (each
      frame's front-end is one replay of its CUDA graph, captured at frame
      0; the launches are counted under replay, as in every later phase);
+     then 8 frames through a System with a vocabulary: one V1 launch a
+     frame, no BinaryVocabulary.transform from the frame assembly, every
+     frame's bow_vec / feat_vec equal to that transform's;
   5. the whole front-end on the card against the same code on the CPU;
   6. torch.profiler: the front-end's device-busy time per frame by device
      op, eager (op by op) and graphed side by side (full tables in
@@ -159,7 +168,7 @@ Phase 1 also prints whether cv2 is importable (the port needs none).
 Phase 2 also requires the port's native host library to build
 (`native.available()`).  Last, no module of JAX or of the JAX package may
 be loaded.  The line before last is the JSON kernel report (launches:
-phase 4's for B1, B2, K1, K2 and K3, phases 8 and 9's for B3, B4 and B5's rBRIEF mode,
+phase 4's for B1, B2, K1, K2 and K3 and its vocabulary run's for V1, phases 8 and 9's for B3, B4 and B5's rBRIEF mode,
 phase 7's check pass for B5's index mode and phase 12's for T1-T4, which
 no tracking path runs; bounds computed from this run's shapes and, for the
 window kernels B2, B4 and B5, from the distinct image bytes this run's
@@ -1089,6 +1098,7 @@ def main() -> int:
     from orbslam3_tpu_torch.ops import brief as tb, fast, pyramid, window_gather as wg
     from orbslam3_tpu_torch.tools import bench_match_kernels as bmk
     from orbslam3_tpu_torch.tools import bench_score_kernels as bsk
+    from orbslam3_tpu_torch.tools import bench_vocab_kernel as bvk
     from orbslam3_tpu_torch.tools import bench_window_kernels as bwk
     from orbslam3_tpu_torch.slam.system import (
         FRONT_END_STREAM_TAG,
@@ -1260,6 +1270,22 @@ def main() -> int:
                             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
                             **extra)
 
+    # V1 (tools/bench_vocab_kernel.py): the vocabulary tree's walk, bit for
+    # bit against its twin on every tree and batch there, and timed at a
+    # frame's 1200 descriptors beside the host's numpy transform
+    walks = bvk.walk_errs(dev)
+    bad = {k: e for k, e in walks.items() if e != 0}
+    require(not bad, f"V1 vocab_descend: kernel != twin at {bad}")
+    phase(f"3 V1 vocab_descend: bit-exact against its twin at {len(walks)} cases "
+          f"({', '.join(walks)})")
+    t = bvk.time_kernel(dev)
+    phase(f"3 V1 vocab_descend at a frame's {bvk.FRAME_DESCRIPTORS} descriptors (the trained "
+          f"k=10, depth-6 tree): device time kernel {t['ms']:.4f} ms, twin {t['plain_ms']:.4f} ms, "
+          f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}), share {t['bound_ms'] / t['ms']:.3f}; "
+          f"host wall: BinaryVocabulary.transform {t['host_transform_ms']:.4f} ms, "
+          f"DeviceVocabulary.transform {t['device_transform_ms']:.4f} ms")
+    report["vocab_descend"] = dict(max_abs_err=0, **t)
+
     # phase 4 -------------------------------------------------------------
     sysm = System(camera, mbf, params, device="cuda")
     bench = Benchmark.the()
@@ -1300,6 +1326,13 @@ def main() -> int:
             and set(STEREO_PER_FRAME) <= set(launches),
             f"expected {STEREO_PER_FRAME} launches per frame, got {launches}")
     require("jax" not in sys.modules, "the port imported JAX")
+    # the same path with a vocabulary: one V1 launch a frame, and the
+    # vectors BinaryVocabulary.transform gives
+    vocab_run = bvk.system_errs(dev)
+    phase(f"4 track_stereo with a vocabulary, {vocab_run['frames']} frames: {vocab_run}")
+    require(vocab_run["frames"] == bvk.SYSTEM_FRAMES and vocab_run["differ"] == 0
+            and vocab_run["host_transform_calls"] == 0
+            and vocab_run["launches"] == vocab_run["frames"], f"V1 in a CUDA System: {vocab_run}")
 
     # phase 5 -------------------------------------------------------------
     on_card = sf.extract_and_match_stereo_packed(pair, params, mbf, FX).cpu().numpy()
@@ -1692,6 +1725,11 @@ def main() -> int:
         dict(name="sad_refine", route="cuda", source="orbslam3_tpu_torch/csrc/sad_refine.cu",
              replaces="orbslam3_tpu/frontend/stereo_frame.py:141",
              launches=launches["sad_refine"], **report["sad_refine"]),
+        dict(name="vocab_descend", route="cuda",
+             source="orbslam3_tpu_torch/csrc/vocab_descend.cu",
+             replaces="none (orbslam3_tpu/vocab/vocabulary.py:120's numpy walk)",
+             launches=vocab_run["launches"], frames=vocab_run["frames"],
+             **report["vocab_descend"]),
     ] + [
         dict(name=f"fast_variant_{fn}", route="cuda",
              source="orbslam3_tpu_torch/csrc/fast_variants.cu", replaces=replaces,

@@ -67,6 +67,8 @@ _SIGNATURES = {
     # sad_refine(p_l, p_r, pairs, xy_l, oct_l, scale, k, max_d, mbf, th_factor,
     #            scratch, u_right, depth, stream)
     "sad_refine": [*[_P] * 6, _I, _F, _F, _F, _P, _P, _P, _P],
+    # vocab_descend(desc, n, children, node_desc, k, feat_level, max_steps, out, stream)
+    "vocab_descend": [_P, _I, _P, _P, _I, _I, _I, _P, _P],
     # fast_variant_t1(img, out, h, w, cast_early, chain16, in_kind, stream)
     "fast_variant_t1": [_P, _P, _I, _I, _I, _I, _I, _P],
     # fast_variant_t2(img, out, h, w, strip, arc, chunk_rows, chunk_cols, stream)

@@ -37,6 +37,7 @@ from orbslam3_tpu_torch.slam.map import Atlas
 from orbslam3_tpu_torch.slam.tracking import Tracking, TrackingState
 from orbslam3_tpu_torch.utils.benchmark import Benchmark, clock_ns, trace_range
 from orbslam3_tpu_torch.utils.lie import SE3
+from orbslam3_tpu_torch.vocab.device_vocabulary import DeviceVocabulary
 
 # Benchmark tags of the front-end's stream window per frame, one per entry
 # point: CUDA events recorded before and after it on the stream.  The
@@ -161,6 +162,14 @@ class System:
         self.sensor = sensor
         self.use_device = use_device
         self.vocabulary = vocabulary
+        # on CUDA the bag-of-words walk runs on the card (V1); a CPU System
+        # keeps the vocabulary's numpy transform, which the host-parity
+        # tests run against the reference
+        self.device_vocabulary = (
+            DeviceVocabulary(vocabulary, self.device)
+            if vocabulary is not None and self.device.type == "cuda"
+            else None
+        )
         self.imu_calib = imu_calib
         self.atlas = Atlas()
         self.atlas.add_camera(camera)
@@ -359,8 +368,9 @@ class System:
     def _frame(self, feats: dict, timestamp: float, bounds, imu, **fields) -> Frame:
         """Every entry point's frame assembly: the tracker's Frame of the
         compacted features (`fields`: what the sensor adds, as Frame takes
-        it), its image bounds (x0, y0, x1, y1), its bag-of-words vectors and
-        its IMU preintegration."""
+        it), its image bounds (x0, y0, x1, y1), its bag-of-words vectors (on
+        a CUDA System the tree's walk runs on the card, `DeviceVocabulary`)
+        and its IMU preintegration."""
         with trace_range("1.2_Frame", self.device, frame=Frame._next_id):
             frame = Frame(
                 kps=feats["kps"],
@@ -376,7 +386,10 @@ class System:
             frame.set_image_bounds(*bounds)
             if self.vocabulary is not None:
                 with trace_range("1.2.1_BoW", self.device):
-                    frame.bow_vec, frame.feat_vec = self.vocabulary.transform(frame.desc)
+                    frame.bow_vec, frame.feat_vec = (
+                        self.vocabulary if self.device_vocabulary is None
+                        else self.device_vocabulary
+                    ).transform(frame.desc)
             else:
                 frame.feat_vec = None
             if imu is not None:

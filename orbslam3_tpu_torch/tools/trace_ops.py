@@ -43,6 +43,7 @@ CSRC = (
     ("grid_pool_coarse_kernel", "csrc/grid_pool.cu"), ("grid_pool_fine_kernel", "csrc/grid_pool.cu"),
     ("stereo_hamming_kernel", "csrc/stereo_hamming.cu"), ("sad_slots_kernel", "csrc/sad_refine.cu"),
     ("sad_median_kernel", "csrc/sad_refine.cu"),
+    ("vocab_descend_kernel", "csrc/vocab_descend.cu"),
 )
 CATS = (
     ("kernels (csrc)", tuple(k for k, _ in CSRC)),

@@ -21,6 +21,7 @@ def _wrappers() -> dict:
     from orbslam3_tpu_torch.ops.fast import detect_fused, raw_score_map
     from orbslam3_tpu_torch.ops.select import candidate_pools
     from orbslam3_tpu_torch.ops.window_gather import gather_windows, sample_windows, window_moments
+    from orbslam3_tpu_torch.vocab.device_vocabulary import vocab_descend
 
     return {
         "fast_score": raw_score_map, "gather_windows": gather_windows,
@@ -29,6 +30,7 @@ def _wrappers() -> dict:
         "fast_variant_t1": fv.fast_variant_t1, "fast_variant_t2": fv.fast_variant_t2,
         "fast_variant_t3": fv.fast_variant_t3, "fast_variant_t4": fv.fast_variant_t4,
         "grid_pool": candidate_pools, "stereo_hamming": stereo_pairs, "sad_refine": sad_refine,
+        "vocab_descend": vocab_descend,
     }
 
 

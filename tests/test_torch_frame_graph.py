@@ -59,7 +59,7 @@ def test_registry_snapshot_add_and_reset():
     assert set(before) == {
         "fast_score", "gather_windows", "detect_fused", "window_moments", "sample_windows",
         "brief_descriptors", "fast_variant_t1", "fast_variant_t2", "fast_variant_t3",
-        "fast_variant_t4", "grid_pool", "stereo_hamming", "sad_refine",
+        "fast_variant_t4", "grid_pool", "stereo_hamming", "sad_refine", "vocab_descend",
     }
     assert port.kernel_launches() == before
     launches.add({"fast_score": 1, "gather_windows": 2})
