@@ -1,6 +1,7 @@
-"""The correctness check's control: the plain reference computed in
-bfloat16, the nearest precision below the float32 the configuration's
-front-end states, put in the program's place.
+"""The correctness check's control: the plain reference of the
+configuration's sensor computed in bfloat16, the nearest precision below
+the float32 the configuration's front-end states, put in the program's
+place.
 
     python3 -m slambench.control --workload <name> --seeds <n> [<n> ...]
 
@@ -44,16 +45,16 @@ def control_checks(cfg: dict, lap, ks, device, seed: int) -> tuple:
     """(checks, sound): the cell's checks with the bfloat16 reference's
     features in the program's place on frames `ks`, and the float32
     reference's features_differ against itself."""
-    ctl = harness.reference_of(cfg, device, torch.bfloat16)
-    ref = harness.reference_of(cfg, device)
-    sampler = harness.Sampler(len(ks), seed)
+    sensor = harness.sensor_of(cfg)
+    ctl = sensor.reference_of(cfg, device, torch.bfloat16)
+    ref = sensor.reference_of(cfg, device)
+    sampler = harness.Sampler(len(ks), seed, sensor.FIELDS)
     sound = 0
     for k in ks:
-        pair = torch.from_numpy(np.stack(lap.pair(k))).to(ctl.device)
-        got = harness.unpack(ctl(pair).cpu().numpy())
+        got = sensor.unpack(harness.reference_block(ctl, lap, k))
         sampler.offer(k, SimpleNamespace(**got))
-        sound += harness.features_differ(ref(pair).cpu().numpy(),
-                                         harness.unpack(ref(pair).cpu().numpy()))
+        sound += sensor.features_differ(harness.reference_block(ref, lap, k),
+                                        sensor.unpack(harness.reference_block(ref, lap, k)))
     window = dict(poses=ground_truth_poses(lap, range(min(ks), max(ks) + 1)))
     return harness.check(cfg, lap, window, sampler, device), sound
 
@@ -62,7 +63,7 @@ def readings(bench: dict, cell_name: str, seed: int, device="cuda") -> dict:
     cell = harness.cell_of(bench, cell_name)
     cfg = harness.config_of(bench, cell)
     mix = harness.mix_of(cell["traffic"])
-    lap = harness.render_lap(cfg, seed, device)
+    lap = harness.sensor_of(cfg).render_lap(cfg, seed, device)
     first = mix["warmup_frames"]
     span = int(bench["run_seconds"] * mix.get("rate_hz", cfg["Camera.fps"]))
     ks = np.random.default_rng(seed).choice(np.arange(first, first + span),

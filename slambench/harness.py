@@ -1,12 +1,15 @@
 """One run of one cell: set-up, the measured window, the checks.
 
 Everything a cell needs is found by name: its configuration in
-`configs/<config>.json`, its traffic in `traffic/<mix>.json` and the loop
-that mix names in `loops/<loop>.py`, each per-layer metric's reader in
-`metrics/<metric>.py`, the lap's path in `world/laps/<kind>.py`.  The program (`orbslam3_tpu_torch`) is driven
-only through its public `System` entry points; from it the benchmark
-reads its own records (the `Benchmark` tags it writes) and the frame the
-tracker consumed (`System.tracker.current`).
+`configs/<config>.json` and the sensor that configuration names in
+`sensors/<sensor>.py` (its frames, its System, its entry point, its plain
+reference), its traffic in `traffic/<mix>.json` and the loop that mix names
+in `loops/<loop>.py`, each per-layer metric's reader in
+`metrics/<metric>.py`, the lap's path in `world/laps/<kind>.py`.  The
+program (`orbslam3_tpu_torch`) is driven only through its public `System`
+entry points; from it the benchmark reads its own records (the `Benchmark`
+tags it writes) and the frame the tracker consumed
+(`System.tracker.current`).
 """
 
 from __future__ import annotations
@@ -24,13 +27,9 @@ import numpy as np
 import torch
 
 from slambench import trace as tracing
-from slambench import work
-from slambench.reference.frontend import OrbParams, StereoReference
-from slambench.world.render import Plane, make_texture, render
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
-RENDER_BATCH = 16
 # what a cell's check compares, with the limit each is held to
 FEATURE_LIMIT = 0  # the front-end's features are integer work and one f32 program: exact
 NO_ATE = 1e9  # metres: the ATE of a window with fewer than three poses
@@ -61,6 +60,19 @@ def mix_of(name: str) -> dict:
         return json.load(f)
 
 
+def sensor_of(cfg: dict):
+    """The module sensors/<sensor>.py that the configuration's `sensor` key names."""
+    name = f"slambench.sensors.{cfg['sensor']}"
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as exc:
+        if exc.name != name:
+            raise
+        raise ModuleNotFoundError(
+            f"configuration {cfg['name']!r} names the sensor {cfg['sensor']!r}, and there is "
+            f"no file slambench/sensors/{cfg['sensor']}.py", name=name) from None
+
+
 def loop_of(mix: dict):
     """The module loops/<loop>.py that the mix's `loop` key names."""
     return importlib.import_module(f"slambench.loops.{mix['loop']}")
@@ -88,8 +100,11 @@ def metrics_of(bench: dict, cell: dict) -> tuple[list, list]:
 # --- the lap --------------------------------------------------------------------
 
 class Lap:
-    """The rendered lap on the host: images (N, 2, h, w) uint8 and the
-    left camera's ground truth, rotations R_wc (N, 3, 3) and centres (N, 3)."""
+    """The rendered lap on the host: images (N, views, h, w) uint8, each
+    frame's views as its sensor orders them (a stereo pair: left, right),
+    and the left camera's ground truth, rotations R_wc (N, 3, 3) and centres
+    (N, 3).  A sensor whose entry takes more per frame, such as the IMU
+    samples since the last frame, keeps it on the lap beside them."""
 
     def __init__(self, images: np.ndarray, R_wc: np.ndarray, c_w: np.ndarray):
         self.images, self.R_wc, self.c_w = images, R_wc, c_w
@@ -97,57 +112,14 @@ class Lap:
     def __len__(self) -> int:
         return len(self.images)
 
-    def pair(self, k: int):
-        img = self.images[k % len(self)]
-        return img[0], img[1]
+    def views(self, k: int) -> np.ndarray:
+        """Lap frame k's views; frame k + len is frame k again."""
+        return self.images[k % len(self)]
 
 
-def render_lap(cfg: dict, seed: int, device) -> Lap:
-    """Textures from `seed` with a generator on `device`, then the lap's
-    stereo pairs rendered there in batches and copied to the host."""
-    device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed % 2**63)
-    planes = [Plane(make_texture(*p["texture"], gen, p.get("noise_cells", (48, 192)),
-                                 p.get("blobs")), p["p0"], p["ex"], p["ey"], p["scale"])
-              for p in cfg["world"]["planes"]]
-    seq = cfg["sequence"]
-    kind = importlib.import_module(f"slambench.world.laps.{seq['kind']}")
-    R_wc, c_w = kind.poses(seq, np.arange(seq["frames"]))
-    h, w = cfg["Camera.height"], cfg["Camera.width"]
-    intr = intrinsics(cfg)
-    base = np.array([baseline(cfg), 0.0, 0.0])
-    images = np.empty((len(R_wc), 2, h, w), np.uint8)
-    with torch.no_grad():
-        for s in range(0, len(R_wc), RENDER_BATCH):
-            R = torch.from_numpy(R_wc[s : s + RENDER_BATCH]).to(device)
-            c = torch.from_numpy(c_w[s : s + RENDER_BATCH]).to(device)
-            right = c + R @ torch.from_numpy(base).to(device)  # the right camera's centre
-            pair = torch.stack([render(planes, intr, R, c, h, w),
-                                render(planes, intr, R, right, h, w)], dim=1)
-            images[s : s + RENDER_BATCH] = pair.cpu().numpy()
-    return Lap(images, R_wc, c_w)
-
-
-def intrinsics(cfg: dict) -> tuple:
-    """(fx, fy, cx, cy) of the rectified left camera, which the frames are rendered in."""
-    return tuple(cfg[f"Rectified.{k}"] for k in ("fx", "fy", "cx", "cy"))
-
-
-def baseline(cfg: dict) -> float:
-    """The rectified pair's baseline in metres, bf / fx."""
-    return cfg["Rectified.bf"] / cfg["Rectified.fx"]
-
-
-def orb_params(cfg: dict) -> OrbParams:
-    return OrbParams(cfg["ORBextractor.nFeatures"], cfg["ORBextractor.scaleFactor"],
-                     cfg["ORBextractor.nLevels"], cfg["ORBextractor.iniThFAST"],
-                     cfg["ORBextractor.minThFAST"])
-
-
-def reference_of(cfg: dict, device, float_dtype=torch.float32) -> StereoReference:
-    return StereoReference(orb_params(cfg), (cfg["Camera.height"], cfg["Camera.width"]),
-                           cfg["Rectified.bf"], cfg["Rectified.fx"], device, float_dtype)
+def reference_block(ref, lap: Lap, k: int) -> np.ndarray:
+    """The plain reference's packed features of lap frame k's views."""
+    return ref(torch.from_numpy(lap.views(k)).to(ref.device)).cpu().numpy()
 
 
 def train_vocabulary(cfg: dict, lap: Lap, device):
@@ -156,42 +128,21 @@ def train_vocabulary(cfg: dict, lap: Lap, device):
     from orbslam3_tpu_torch.vocab.vocabulary import BinaryVocabulary
 
     voc = cfg["vocabulary"]
-    ref = reference_of(cfg, device)
-    descs = []
-    for k in np.linspace(0, len(lap), voc["train_frames"], endpoint=False).astype(int):
-        pair = torch.from_numpy(np.stack(lap.pair(k))).to(device)
-        block = ref(pair).cpu().numpy()
-        descs.append(block[block[:, 5] > 0.5, 8:40].astype(np.uint8))
-    return BinaryVocabulary.train(np.concatenate(descs), k=voc["k"], depth=voc["depth"], seed=0)
-
-
-def make_system(cfg: dict, vocabulary, device):
-    """The threaded System as `System.from_files` makes it from the settings."""
-    from orbslam3_tpu_torch.cameras.models import Pinhole
-    from orbslam3_tpu_torch.oracle.orb_cpu import PyramidParams
-    from orbslam3_tpu_torch.slam.system import System
-
-    camera = Pinhole(list(intrinsics(cfg)))
-    params = PyramidParams(
-        n_features=cfg["ORBextractor.nFeatures"], scale_factor=cfg["ORBextractor.scaleFactor"],
-        n_levels=cfg["ORBextractor.nLevels"], ini_th_fast=cfg["ORBextractor.iniThFAST"],
-        min_th_fast=cfg["ORBextractor.minThFAST"])
-    system = System(camera, cfg["Rectified.bf"], params, sequential=False,
-                    vocabulary=vocabulary, max_frames=int(cfg["Camera.fps"]), device=device)
-    system.tracker.depth_th = baseline(cfg) * cfg["Stereo.ThDepth"]
-    return system
+    ks = np.linspace(0, len(lap), voc["train_frames"], endpoint=False).astype(int)
+    descs = sensor_of(cfg).training_descriptors(cfg, lap, ks, device)
+    return BinaryVocabulary.train(descs, k=voc["k"], depth=voc["depth"], seed=0)
 
 
 # --- the window ---------------------------------------------------------------
 
 class Sampler:
     """A uniform sample, drawn from the seed, of the frames the tracker read
-    in the window (reservoir sampling): {frame index: its features}."""
+    in the window (reservoir sampling): {frame index: its features}, the
+    frame's attributes that the sensor's check reads (`fields`)."""
 
-    FIELDS = ("kps", "octave", "angle", "response", "desc", "u_right", "depth")
-
-    def __init__(self, size: int, seed: int):
+    def __init__(self, size: int, seed: int, fields: tuple):
         self.size = size
+        self.fields = fields
         self.rng = np.random.default_rng(seed)
         self.seen = 0
         self.kept: dict = {}
@@ -208,7 +159,7 @@ class Sampler:
             slot = sorted(self.kept)[j]
         if slot is not None:
             del self.kept[slot]
-        self.kept[k] = {f: np.array(getattr(frame, f)) for f in self.FIELDS}
+        self.kept[k] = {f: np.array(getattr(frame, f)) for f in self.fields}
 
 
 class Tracer:
@@ -283,32 +234,6 @@ def describe(system, window: dict) -> str:
 
 # --- the check ------------------------------------------------------------------
 
-FEATURE_COLS = ("x", "y", "response", "angle", "octave", "u_right", "depth")
-
-
-def unpack(block: np.ndarray) -> dict:
-    """The valid rows of a packed (K, 40) block as the tracker's frame holds
-    them (`Sampler.FIELDS`)."""
-    a = block[block[:, 5] > 0.5]
-    return dict(kps=a[:, 0:2], response=a[:, 2], angle=a[:, 3], octave=a[:, 4].astype(np.int32),
-                u_right=a[:, 6], depth=a[:, 7], desc=a[:, 8:40].astype(np.uint8))
-
-
-def features_differ(ref_block: np.ndarray, got: dict) -> int:
-    """Features that differ between the reference's packed block and what
-    the tracker read: every valid reference row against the program's
-    feature of the same rank (keypoint, octave, angle, response,
-    descriptor, right coordinate, depth), plus any surplus on either side."""
-    a = ref_block[ref_block[:, 5] > 0.5]
-    want = np.concatenate([a[:, [0, 1, 2, 3, 4, 6, 7]].astype(np.float64), a[:, 8:40]], axis=1)
-    have = np.concatenate([
-        got["kps"].astype(np.float64), got["response"][:, None], got["angle"][:, None],
-        got["octave"][:, None], got["u_right"][:, None], got["depth"][:, None],
-        got["desc"].astype(np.float64)], axis=1)
-    n = min(len(want), len(have))
-    return int((want[:n] != have[:n]).any(axis=1).sum()) + abs(len(want) - len(have))
-
-
 def ate_rmse(est_c: np.ndarray, gt_c: np.ndarray) -> float:
     """RMS of the camera centres' error after the rigid (Umeyama) alignment."""
     mu_e, mu_g = est_c.mean(0), gt_c.mean(0)
@@ -323,14 +248,14 @@ def ate_rmse(est_c: np.ndarray, gt_c: np.ndarray) -> float:
 
 
 def check(cfg: dict, lap: Lap, window: dict, sampler: Sampler, device) -> list:
-    """[(name, value, limit)]: the sampled frames' features against the plain
-    reference on the same pairs, and the returned poses against the lap's
-    ground truth."""
-    ref = reference_of(cfg, device)
+    """[(name, value, limit)]: the sampled frames' features against the
+    sensor's plain reference on the same frames (`features_differ`), and the
+    returned poses against the lap's ground truth."""
+    sensor = sensor_of(cfg)
+    ref = sensor.reference_of(cfg, device)
     differ = 0
     for k, got in sorted(sampler.kept.items()):
-        pair = torch.from_numpy(np.stack(lap.pair(k))).to(ref.device)
-        differ += features_differ(ref(pair).cpu().numpy(), got)
+        differ += sensor.features_differ(reference_block(ref, lap, k), got)
     tracked = [(k, p) for k, p in window["poses"] if p is not None]
     acc = cfg["accuracy"]
     if len(tracked) >= 3:
@@ -370,11 +295,12 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, traced: boo
     mix = mix if mix is not None else mix_of(cell["traffic"])
     fps = float(cfg["Camera.fps"])
     loop = loop_of(mix)
-    lap = render_lap(cfg, seed, device)
+    sensor = sensor_of(cfg)
+    lap = sensor.render_lap(cfg, seed, device)
     vocabulary = train_vocabulary(cfg, lap, device)
-    system = make_system(cfg, vocabulary, device)
-    k0 = loop.warm_up(system, lap, mix, fps)
-    sampler = Sampler(mix["check_frames"], seed)
+    system = sensor.make_system(cfg, vocabulary, device)
+    k0 = loop.warm_up(system, sensor, lap, mix, fps)
+    sampler = Sampler(mix["check_frames"], seed, sensor.FIELDS)
     tracer = Tracer(device) if traced else None
     if tracer:
         tracer.start()
@@ -382,7 +308,7 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, traced: boo
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     setup_s = time.perf_counter() - t_start
-    window = loop.run(system, lap, k0, mix, fps, seconds, sampler, tracer)
+    window = loop.run(system, sensor, lap, k0, mix, fps, seconds, sampler, tracer)
     if tracer:
         tracer.stop(window["host"])
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
@@ -406,8 +332,5 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, traced: boo
     if traced:  # what the per-layer readers read
         out["run"] = dict(cfg=cfg, mix=mix, records=tracer.records, host=tracer.host,
                           trace=tracing.read(tracer.path) if tracer.path else None,
-                          least_s=work.least_seconds(
-                              cfg["Camera.height"], cfg["Camera.width"],
-                              cfg["ORBextractor.nFeatures"], cfg["ORBextractor.nLevels"],
-                              cfg["ORBextractor.scaleFactor"]))
+                          least_s=sensor.least_seconds(cfg))
     return out

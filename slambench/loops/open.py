@@ -1,7 +1,7 @@
-"""Open loop: frames due at the mix's `rate_hz`, one at a time through
-`System.track_stereo`, as a live camera hands them over; each frame's
-latency runs from its due time.  The frames carry the camera's own
-timestamps, k / Camera.fps."""
+"""Open loop: frames due at the mix's `rate_hz`, one at a time through the
+sensor's entry point (`sensor.track`), as a live camera hands them over;
+each frame's latency runs from its due time.  The frames carry the
+camera's own timestamps, k / Camera.fps."""
 
 from __future__ import annotations
 
@@ -10,18 +10,19 @@ import time
 import torch
 
 
-def warm_up(system, lap, mix: dict, fps: float) -> int:
+def warm_up(system, sensor, lap, mix: dict, fps: float) -> int:
     """The warm-up frames due at the mix's rate: the graph's capture, the
     map's initialisation.  Returns the next lap frame."""
     n, rate = mix["warmup_frames"], float(mix["rate_hz"])
     t0 = time.perf_counter()
     for k in range(n):
         time.sleep(max(0.0, t0 + k / rate - time.perf_counter()))
-        system.track_stereo(*lap.pair(k), k / fps)
+        sensor.track(system, lap, k, k / fps)
     return n
 
 
-def run(system, lap, k0: int, mix: dict, fps: float, seconds: float, sampler, tracer) -> dict:
+def run(system, sensor, lap, k0: int, mix: dict, fps: float, seconds: float, sampler,
+        tracer) -> dict:
     rate = float(mix["rate_hz"])
     n = int(round(seconds * rate))
     poses, latency, late = [], [], []
@@ -41,7 +42,7 @@ def run(system, lap, k0: int, mix: dict, fps: float, seconds: float, sampler, tr
         if busy_until <= due:  # the generator's own lateness, not the queue's
             late.append(start - due)
         try:
-            pose = system.track_stereo(*lap.pair(k), k / fps)
+            pose = sensor.track(system, lap, k, k / fps)
         except Exception as exc:  # noqa: BLE001 — a raising call counts as failed
             print(f"frame {k}: {type(exc).__name__}: {exc}", flush=True)
             pose = None

@@ -31,10 +31,12 @@ def one_rate(cfg: dict, lap, vocabulary, mix: dict, rate: float, seconds: float,
              device="cuda") -> dict:
     mix = dict(mix, rate_hz=rate)
     loop = harness.loop_of(mix)
+    sensor = harness.sensor_of(cfg)
     fps = float(cfg["Camera.fps"])
-    system = harness.make_system(cfg, vocabulary, torch.device(device))
-    k0 = loop.warm_up(system, lap, mix, fps)
-    window = loop.run(system, lap, k0, mix, fps, seconds, harness.Sampler(0, seed), None)
+    system = sensor.make_system(cfg, vocabulary, torch.device(device))
+    k0 = loop.warm_up(system, sensor, lap, mix, fps)
+    window = loop.run(system, sensor, lap, k0, mix, fps, seconds,
+                      harness.Sampler(0, seed, sensor.FIELDS), None)
     st = system.map_stats()
     system.shutdown()
     lat = np.asarray(window["latency_s"]) * 1e3
@@ -66,7 +68,7 @@ def main(argv=None) -> int:
     cfg = harness.config_of(bench, cell)
     mix = harness.mix_of(cell["traffic"])
     t0 = time.perf_counter()
-    lap = harness.render_lap(cfg, args.seed, "cuda")
+    lap = harness.sensor_of(cfg).render_lap(cfg, args.seed, "cuda")
     vocabulary = harness.train_vocabulary(cfg, lap, "cuda")
     print(f"card: {torch.cuda.get_device_name(0)}; lap and vocabulary in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)

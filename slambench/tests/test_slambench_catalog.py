@@ -1,5 +1,5 @@
 """BENCHMARK.json against the contract's shape, and the harness finding each
-cell's configuration, traffic mix and per-layer readers by name."""
+cell's configuration, sensor, traffic mix and per-layer readers by name."""
 
 import json
 import re
@@ -8,6 +8,7 @@ import pytest
 
 from slambench import harness
 from slambench import run as run_mod
+from slambench.sensors import INTERFACE
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -52,6 +53,22 @@ def test_every_cell_finds_its_files(bench):
         assert any(c["config"] == entry["name"] for c in bench["workloads"])
         cfg = json.load(open(harness.ROOT / entry["file"]))
         assert cfg["reduced"] == entry["reduced"] and cfg["source"] == entry["source"]
+
+
+def test_every_config_finds_its_sensor():
+    for path in sorted((harness.HERE / "configs").glob("*.json")):
+        cfg = json.load(open(path))
+        sensor = harness.sensor_of(cfg)
+        assert sensor.__name__ == f"slambench.sensors.{cfg['sensor']}"
+        for name in INTERFACE:
+            assert hasattr(sensor, name), (path.name, name)
+        assert all(isinstance(f, str) for f in sensor.FIELDS) and sensor.FIELDS
+        assert all(callable(getattr(sensor, n)) for n in INTERFACE if n != "FIELDS")
+
+
+def test_an_unknown_sensor_names_its_missing_file():
+    with pytest.raises(ModuleNotFoundError, match=r"slambench/sensors/sonar\.py"):
+        harness.sensor_of({"name": "x", "sensor": "sonar"})
 
 
 def test_readers_return_nothing_without_data(bench):

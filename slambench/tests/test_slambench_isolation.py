@@ -1,6 +1,7 @@
 """Nothing the benchmark runs imports JAX or the JAX package: the check on
 whole top-level names, and a process that refuses them while it loads
-every module of the benchmark and the program's modules it drives."""
+every module of the benchmark (each configuration's sensor among them) and
+the program's modules it drives."""
 
 import subprocess
 import sys
@@ -29,8 +30,11 @@ def test_benchmark_loads_without_jax_or_the_jax_package():
                 if name.split(".")[0] in {FORBIDDEN!r}:
                     raise ImportError("refused: " + name)
         sys.meta_path.insert(0, Refuse())
-        import slambench.run, slambench.control
+        import json
+        import slambench.run, slambench.control, slambench.sweep
         from slambench import harness
+        for p in (harness.HERE / "configs").glob("*.json"):
+            harness.sensor_of(json.load(open(p)))
         for m in {readers!r}:
             harness.reader_of(m)
         import orbslam3_tpu_torch.slam.system, orbslam3_tpu_torch.vocab.vocabulary

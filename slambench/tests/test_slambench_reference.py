@@ -7,6 +7,7 @@ import torch
 
 from slambench import harness
 from slambench.reference.frontend import OrbParams, StereoReference
+from slambench.sensors import stereo
 from slambench.world.laps import sweep
 from slambench.world.render import Plane, make_texture, render
 
@@ -46,7 +47,7 @@ def test_reference_equals_the_programs_front_end_bit_for_bit():
         want = ref(pair).numpy()
         assert np.array_equal(got, want)
         assert (want[:, 5] > 0).sum() > FEATURES // 2 and (want[:, 7] > 0).sum() > 50
-        assert harness.features_differ(want, harness.unpack(got)) == 0
+        assert stereo.features_differ(want, stereo.unpack(got)) == 0
 
 
 def test_bfloat16_control_fails_the_feature_check():
