@@ -1,13 +1,15 @@
-"""What users launch, in the port: the dataset drivers, the examples, the
-entry hook, the bench and the ATE tool.
+"""What users launch, in the port: the dataset drivers, and the bench and
+the entry hook without a card.  The examples, the entry hook's step and
+the ATE tool are in tests/test_torch_examples.py.
 
 Fast tier, on the CPU, a few frames: each port driver (EuRoC stereo,
 stereo-inertial, `--pipeline 2`, `--batch 4`, KITTI, TUM-RGBD with and
 without `--fused`, TUM-VI)
 reads its dataset tree with `utils.imageio` and must give poses bit for
 bit equal to the port's `System` built from the same settings file and
-driven by hand on the same images read by cv2; the trees and the EuRoC
-YAML come from tests/test_dataset_drivers.py's writers.  Without a card,
+driven by hand on the same images read by cv2 (once for each tree,
+settings file and sensor); the trees and the EuRoC YAML come from
+tests/test_dataset_drivers.py's writers.  Without a card,
 every driver on its default device, the bench and the entry hook refuse.
 
 Slow tier, at that file's 14 frames: each port driver against the JAX
@@ -265,6 +267,11 @@ def _asl_by_hand(tree, settings, sensor):
     return slam
 
 
+def _euroc_stereo_by_hand(tree):
+    """The by-hand run of the three EuRoC stereo cases, which share it."""
+    return _asl_by_hand(tree, tree["stereo"], "stereo")
+
+
 def _kitti_by_hand(tree):
     slam = System.from_files(None, tree["settings"], sensor="stereo", device="cpu")
     names = sorted(os.listdir(os.path.join(tree["seq"], "image_0")))
@@ -291,17 +298,16 @@ def _tum_rgbd_by_hand(tree, fused=FusedKernels()):
 # name -> (tree, port driver call, by-hand run)
 CASES = {
     "euroc_stereo": ("euroc", lambda t, d, **kw: run_euroc.main(
-        t["seq"], t["stereo"], None, "stereo", out_dir=d, **kw),
-        lambda t: _asl_by_hand(t, t["stereo"], "stereo")),
+        t["seq"], t["stereo"], None, "stereo", out_dir=d, **kw), _euroc_stereo_by_hand),
     "euroc_stereo_inertial": ("euroc", lambda t, d, **kw: run_euroc.main(
         t["seq"], t["inertial"], None, "stereo-inertial", out_dir=d, **kw),
         lambda t: _asl_by_hand(t, t["inertial"], "stereo-inertial")),
     "euroc_pipeline2": ("euroc", lambda t, d, **kw: run_euroc.main(
         t["seq"], t["stereo"], None, "stereo", pipeline=2, out_dir=d, **kw),
-        lambda t: _asl_by_hand(t, t["stereo"], "stereo")),
+        _euroc_stereo_by_hand),
     "euroc_batch4": ("euroc", lambda t, d, **kw: run_euroc.main(
         t["seq"], t["stereo"], None, "stereo", batch=4, out_dir=d, **kw),
-        lambda t: _asl_by_hand(t, t["stereo"], "stereo")),
+        _euroc_stereo_by_hand),
     "kitti": ("kitti", lambda t, d, **kw: run_kitti.main(
         t["seq"], t["settings"], out_dir=d, **kw), _kitti_by_hand),
     "tum_rgbd": ("tum_rgbd", lambda t, d, **kw: run_tum_rgbd.main(
@@ -319,12 +325,25 @@ def _poses(slam) -> list:
     return [(ts, twc.R, twc.t) for ts, twc in slam.frame_trajectory()]
 
 
+@pytest.fixture(scope="module")
+def by_hand_poses(trees):
+    """The poses of each by-hand run, keyed by (tree, by-hand run): the
+    three EuRoC stereo cases drive one System by hand once."""
+    memo = {}
+
+    def poses(tree_name, by_hand):
+        if (tree_name, by_hand) not in memo:
+            memo[tree_name, by_hand] = _poses(by_hand(trees[tree_name]))
+        return memo[tree_name, by_hand]
+
+    return poses
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_driver_equals_system_driven_by_hand(trees, tmp_path, case):
+def test_driver_equals_system_driven_by_hand(trees, by_hand_poses, tmp_path, case):
     tree_name, drive, by_hand = CASES[case]
-    tree = trees[tree_name]
-    slam = drive(tree, str(tmp_path), device="cpu")
-    got, want = _poses(slam), _poses(by_hand(tree))
+    slam = drive(trees[tree_name], str(tmp_path), device="cpu")
+    got, want = _poses(slam), by_hand_poses(tree_name, by_hand)
     assert len(got) == len(want) == FAST_FRAMES
     for (tg, rg, pg), (tw, rw, pw) in zip(got, want):
         assert tg == tw
@@ -366,69 +385,6 @@ def test_parse_fused():
     assert common.parse_fused("detect,moments,sample") == (True, True, True)
     with pytest.raises(ValueError, match="nms"):
         common.parse_fused("detect,nms")
-
-
-def test_synthetic_and_multi_robot_examples_on_the_cpu():
-    from orbslam3_tpu_torch.examples import run_multi_robot, run_synth
-
-    sysm, est, gt, rmse = run_synth.main(7, 240, 320, device="cpu")
-    assert len(est) == 7 and rmse < 0.02
-    systems, est, gt = run_multi_robot.main(2, 3, 900, 384, 512, device="cpu")
-    assert [len(e) for e in est] == [3, 3]
-
-
-def test_demo_extract_on_the_cpu():
-    from orbslam3_tpu_torch.examples import demo_extract
-
-    feat, left = demo_extract.main("cpu")
-    assert int(feat.valid.sum()) > 900 and int(left.valid.sum()) > 900
-
-
-def test_entry_matches_reference():
-    """The entry hook's step on the CPU against the reference's
-    (`__graft_entry__.entry`: its params and pair, its stereo program) on
-    the same pair: integer columns equal."""
-    sys.path.insert(0, REPO)
-    import __graft_entry__
-    from orbslam3_tpu.frontend import stereo_frame as ref_sf
-    from orbslam3_tpu_torch.entry import entry
-
-    fn, (pair,) = entry("cpu")
-    _, (ref_pair,) = __graft_entry__.entry()
-    np.testing.assert_array_equal(pair.numpy(), ref_pair)
-    got = fn(pair)
-    want = ref_sf.extract_and_match_stereo(
-        ref_pair, __graft_entry__._params(), ref_sf.DEFAULT_MBF, ref_sf.DEFAULT_FX
-    )
-    for side in ("left", "right"):
-        g, w = getattr(got, side), getattr(want, side)
-        for col in ("xy", "octave", "response", "valid"):
-            np.testing.assert_array_equal(getattr(g, col).numpy(), np.asarray(getattr(w, col)))
-    ok = (got.u_right >= 0).numpy()
-    assert ok.sum() > 100
-    np.testing.assert_array_equal(ok, np.asarray(want.u_right) >= 0)
-
-
-def test_evaluate_ate_matches_reference(tmp_path):
-    """The port's ATE tool prints the reference's JSON line."""
-    rng = np.random.default_rng(3)
-    t = np.arange(50) * 0.05
-    gt = np.column_stack([t, np.cumsum(rng.normal(0, 0.02, (50, 3)), 0), np.zeros((50, 3)),
-                          np.ones(50)])
-    est = gt.copy()
-    est[:, 1:4] = est[:, 1:4] @ np.array([[0, -1, 0], [1, 0, 0], [0, 0, 1.0]]) + 0.3
-    est[:, 1:4] += rng.normal(0, 0.003, (50, 3))
-    est[:, 0] += 0.004
-    paths = [str(tmp_path / n) for n in ("est.txt", "gt.txt")]
-    for p, rows in zip(paths, (est, gt)):
-        np.savetxt(p, rows)
-    outs = [
-        subprocess.run([sys.executable, *cmd, *paths, "--scale"], capture_output=True, text=True,
-                       cwd=REPO, timeout=120, env=dict(os.environ, PYTHONPATH=REPO)).stdout
-        for cmd in (["-m", "orbslam3_tpu_torch.tools.evaluate_ate"], ["tools/evaluate_ate.py"])
-    ]
-    assert outs[0] and outs[0] == outs[1]
-    assert '"pairs": 50' in outs[0]
 
 
 # --- slow: the port's drivers against the JAX package's ------------------------
